@@ -6,17 +6,22 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device    — the card's name, and nvidia-smi's name and power limit;
-2. build     — nvcc builds the tanh_matmul kernel from this checkout;
-3. kernel    — tanh_matmul against tanh_matmul_plain on the card at three
-               shapes, and its time beside its bound, the plain version's
-               time and one cuBLAS call's (``torch.tanh(h @ w)``, a
-               yardstick the package never calls);
+2. build     — one nvcc call builds both tanh_matmul kernels (wgmma and
+               wmma) from this checkout;
+3. kernel    — each kernel against tanh_matmul_plain on the card at the
+               shapes that pick it (ragged M, N, K edges; K or N not a
+               multiple of 8; a misaligned h), checking which kernel each
+               launched; then, at the main-path shape and in turns, the
+               times of the wgmma kernel, the wmma kernel (through its C
+               entry), the plain version and one cuBLAS call
+               (``torch.tanh(h @ w)``, a yardstick the package never calls);
 4. workload  — a burn at width 8192, depth 8, batch 4096 (10 forwards per
-               step), its TFLOP/s, and the chain checked against the plain
-               chain;
+               step), its TFLOP/s, the chain checked against the plain
+               chain, and every launch on the wgmma kernel;
 5. closed    — the main path: hwcheck's live exporter on the torch backend,
    loop       scraped over HTTP while a 16 GiB fill and the full-size burn
-               load the card; memory must rise under load and fall after.
+               load the card; memory must rise under load and fall after,
+               and every launch is on the wgmma kernel.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -42,7 +47,18 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 # batch 4096 (HARDWARE.md), and a 16 GiB fill held beside it.
 WIDTH, DEPTH, BATCH, ITERS = 8192, 8, 4096, 10
 FILL_BYTES = 16 << 30
-KERNEL_SHAPES = ((32, 128, 128), (257, 1000, 4095), (BATCH, WIDTH, WIDTH))
+MAIN_SHAPE = (BATCH, WIDTH, WIDTH)
+# (m, k, n, elements h is shifted off 16-byte alignment, kernel it picks).
+KERNEL_CASES = (
+    (32, 128, 128, 0, "wgmma"),
+    (257, 1000, 4096, 0, "wgmma"),   # ragged M and K tiles
+    (1, 64, 8, 0, "wgmma"),          # one row; N and K inside one tile
+    (300, 136, 264, 0, "wgmma"),     # ragged M, N and K; a W box wholly past N
+    (*MAIN_SHAPE, 0, "wgmma"),
+    (257, 1000, 4095, 0, "wmma"),    # N not a multiple of 8
+    (300, 136, 264, 1, "wmma"),      # h off 16-byte alignment
+)
+SOURCES = {"wgmma": "tanh_matmul_sm90.cu", "wmma": "tanh_matmul.cu"}
 # One layer: the kernel and the plain version both sum bf16 products in f32,
 # in different orders, and take tanh in f32 (tanhf against torch.tanh); the
 # two f32 results may then round to neighbouring bf16 values. One bf16 step
@@ -66,21 +82,31 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of one call each."""
-    for _ in range(warmup):
+def time_in_turns(fns: dict, reps: int = 20, calls: int = 5) -> dict:
+    """Median ms a call of each function, timed in turns: every round times
+    each function once, as CUDA events around ``calls`` back-to-back calls
+    (so the host's launch cost of the first hides behind the others)."""
+    for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    times = []
+    times: dict = {name: [] for name in fns}
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / calls)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def reset_counts(tm) -> None:
+    tm.tanh_matmul.launches = 0
+    for kernel in tm.tanh_matmul.launches_by_kernel:
+        tm.tanh_matmul.launches_by_kernel[kernel] = 0
 
 
 def layer_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
@@ -91,33 +117,75 @@ def layer_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def operands(dev, gen, m, k, n, offset=0):
+    """h (m,k) and w (k,n) bf16; ``offset`` elements shift h off 16-byte
+    alignment while keeping it contiguous."""
+    h = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    if offset:
+        buf = torch.empty((m * k + offset,), dtype=torch.bfloat16, device=dev)
+        h = buf[offset:].view(m, k).copy_(h)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k**-0.5).to(torch.bfloat16)
+    return h, w
+
+
 def phase_kernel(dev, tm) -> dict:
+    """Each kernel against the plain version; then the times at the main
+    shape. Returns {kernel: its numbers for the kernels line}."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    record: dict = {}
-    for m, k, n in KERNEL_SHAPES:
-        h = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        w = (torch.randn((k, n), generator=gen, device=dev) * k**-0.5).to(torch.bfloat16)
+    errs: dict = {}
+    for m, k, n, offset, kernel in KERNEL_CASES:
+        h, w = operands(dev, gen, m, k, n, offset)
+        before = dict(tm.tanh_matmul.launches_by_kernel)
         y = tm.tanh_matmul(h, w)
         ref = tm.tanh_matmul_plain(h, w)
         torch.cuda.synchronize()
+        moved = {name: tm.tanh_matmul.launches_by_kernel[name] - before[name]
+                 for name in before}
         err = (y.float() - ref.float()).abs().max().item()
-        emit("kernel", shape=[m, k, n], max_abs_err=err, atol=LAYER_ATOL)
+        emit("kernel", kernel=kernel, shape=[m, k, n], h_offset=offset,
+             launched=moved, max_abs_err=err, atol=LAYER_ATOL)
+        if moved != {name: int(name == kernel) for name in moved}:
+            raise AssertionError(f"{m}x{k}x{n} offset {offset}: expected one "
+                                 f"{kernel} launch, counted {moved}")
         if not (torch.isfinite(y.float()).all() and err <= LAYER_ATOL):
-            raise AssertionError(f"tanh_matmul {m}x{k}x{n}: max_abs_err {err} > {LAYER_ATOL}")
-        if (m, k, n) == (BATCH, WIDTH, WIDTH):
-            bound, bound_by = layer_bound_ms(m, k, n)
-            record = {
-                "max_abs_err": err,
-                "ms": time_ms(lambda: tm.tanh_matmul(h, w)),
-                "plain_ms": time_ms(lambda: tm.tanh_matmul_plain(h, w)),
-                "library_ms": time_ms(lambda: torch.tanh(h @ w)),
-                "bound_ms": bound,
-                "bound_by": bound_by,
-            }
-            emit("kernel_time", shape=[m, k, n], **record,
-                 tflops=2.0 * m * n * k / record["ms"] / 1e9)
+            raise AssertionError(f"{kernel} {m}x{k}x{n}: max_abs_err {err} > {LAYER_ATOL}")
+        if (m, k, n) == MAIN_SHAPE:
+            errs[kernel] = err
         del h, w, y, ref
-    return record
+
+    m, k, n = MAIN_SHAPE
+    h, w = operands(dev, gen, m, k, n)
+    wmma_err = (tm.launch("wmma", h, w).float()
+                - tm.tanh_matmul_plain(h, w).float()).abs().max().item()
+    if wmma_err > LAYER_ATOL:
+        raise AssertionError(f"wmma {m}x{k}x{n}: max_abs_err {wmma_err} > {LAYER_ATOL}")
+    errs["wmma"] = wmma_err
+    ms = time_in_turns({
+        "wgmma": lambda: tm.tanh_matmul(h, w),
+        "library": lambda: torch.tanh(h @ w),
+        "wmma": lambda: tm.launch("wmma", h, w),
+        "plain": lambda: tm.tanh_matmul_plain(h, w),
+    })
+    bound, bound_by = layer_bound_ms(m, k, n)
+    flops = 2.0 * m * n * k
+    emit("kernel_time", shape=[m, k, n], ms=ms, bound_ms=bound, bound_by=bound_by,
+         tflops={name: flops / t / 1e9 for name, t in ms.items()},
+         share_of_bound={name: bound / t for name, t in ms.items()})
+    del h, w
+    return {kernel: {
+        "max_abs_err": errs[kernel],
+        "ms": ms[kernel],
+        "plain_ms": ms["plain"],
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": ms["library"],
+    } for kernel in SOURCES}
+
+
+def check_all_wgmma(tm, phase: str, launches: int) -> None:
+    by_kernel = tm.tanh_matmul.launches_by_kernel
+    if by_kernel["wgmma"] != launches or by_kernel["wmma"] != 0:
+        raise AssertionError(f"{phase}: {launches} launches, by kernel {by_kernel}")
 
 
 def phase_workload(dev, tm, wl) -> None:
@@ -134,7 +202,7 @@ def phase_workload(dev, tm, wl) -> None:
         raise AssertionError(f"forward chain: shape {tuple(out.shape)}, "
                              f"max_abs_err {chain_err} > {CHAIN_ATOL}")
     del out, plain
-    tm.tanh_matmul.launches = 0
+    reset_counts(tm)
     steps = 0
     t0 = time.monotonic()
     while time.monotonic() - t0 < BURN_SECONDS:
@@ -142,23 +210,31 @@ def phase_workload(dev, tm, wl) -> None:
         torch.cuda.synchronize()
         steps += 1
     dt = time.monotonic() - t0
+    # The card's clock and draw just after 10 s of load: under its power
+    # limit the clock falls below what a short timing sees.
+    clocks_power = nvidia_smi("clocks.sm,power.draw")
     launches = tm.tanh_matmul.launches
     if launches != steps * ITERS * DEPTH or not torch.isfinite(x.float()).all():
         raise AssertionError(f"burn: {launches} launches for {steps} steps")
+    check_all_wgmma(tm, "burn", launches)
     flops = 2 * BATCH * WIDTH * WIDTH * DEPTH * ITERS * steps
     emit("workload", width=WIDTH, depth=DEPTH, batch=BATCH, iters=ITERS,
          steps=steps, seconds=dt, tflops=flops / dt / 1e12,
-         launches=launches, chain_max_abs_err=chain_err, chain_atol=CHAIN_ATOL)
+         launches=launches, launches_by_kernel=tm.tanh_matmul.launches_by_kernel,
+         chain_max_abs_err=chain_err, chain_atol=CHAIN_ATOL,
+         clocks_sm_power_draw=clocks_power)
 
 
-def phase_closed_loop(dev, tm, hwcheck, uuid: str) -> int:
+def phase_closed_loop(dev, tm, hwcheck, uuid: str) -> dict:
     stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
                                  batch=BATCH, iters=ITERS, device=dev)
-    tm.tanh_matmul.launches = 0
+    reset_counts(tm)
     report = hwcheck.run_check(backend="torch", idle_s=2.0, load_s=8.0,
                                stimulus=stim)
     launches = tm.tanh_matmul.launches
-    emit("closed_loop", report=report, launches=launches, burn_steps=stim.steps)
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    emit("closed_loop", report=report, launches=launches,
+         launches_by_kernel=by_kernel, burn_steps=stim.steps)
     checks = report["checks"]
     if not (report["ok"] and checks["hbm_rises_under_load"]
             and checks["hbm_falls_after_release"]):
@@ -171,12 +247,13 @@ def phase_closed_loop(dev, tm, hwcheck, uuid: str) -> int:
         raise AssertionError(f"gpu_hbm_used_bytes rose {rise} B, less than the fill")
     if launches <= 0:
         raise AssertionError("no tanh_matmul launch during the load phase")
+    check_all_wgmma(tm, "closed loop", launches)
     from tpu_pod_exporter_torch.backend.torchdev import TorchCudaBackend
 
     (chip,) = TorchCudaBackend().sample().chips
     if chip.info.device_ids[0] != uuid:
         raise AssertionError(f"device id {chip.info.device_ids} != nvidia-smi {uuid}")
-    return launches
+    return by_kernel
 
 
 def main() -> int:
@@ -200,21 +277,22 @@ def main() -> int:
     t0 = time.monotonic()
     path, log = tm.build()
     emit("build", seconds=time.monotonic() - t0, library=path.name,
-         ptxas=[ln.strip() for ln in log.splitlines() if "ptxas" in ln])
+         ptxas=[ln.strip() for ln in log.splitlines()
+                if "ptxas" in ln or "spill" in ln])  # spills print unprefixed
 
-    record = phase_kernel(dev, tm)
+    records = phase_kernel(dev, tm)
     phase_workload(dev, tm, wl)
     torch.cuda.empty_cache()
     launches = phase_closed_loop(dev, tm, hwcheck, uuid)
 
     print(json.dumps({"kernels": [{
-        "name": "tanh_matmul",
+        "name": tm.ENTRIES[kernel],
         "route": "cuda",
-        "source": "tpu_pod_exporter_torch/kernels/csrc/tanh_matmul.cu",
+        "source": f"tpu_pod_exporter_torch/kernels/csrc/{source}",
         "replaces": "tpu_pod_exporter/loadgen/workload.py:40",
-        "launches": launches,
-        **record,
-    }]}))
+        "launches": launches[kernel],
+        **records[kernel],
+    } for kernel, source in SOURCES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
-"""The port on a CUDA card: the tanh_matmul kernel against its plain version
-at ragged and misaligned shapes, the launch count, the backend reading the
-allocator, and a small closed loop. Each test needs a CUDA device and skips
-without one; on a machine with a card run
+"""The port on a CUDA card: both tanh_matmul kernels (wgmma for shapes TMA
+can address, wmma for the rest) against the plain version at ragged and
+misaligned shapes, which kernel each shape launched, the backend reading
+the allocator, and a small closed loop. Every test carries the ``gpu``
+marker, needs a CUDA device and skips without one; on a machine with a card
+run
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest -m gpu tests/test_torch_cuda.py -q
 
 This file imports no JAX, so it runs where only torch is installed.
 """
@@ -13,6 +15,8 @@ import torch
 
 from tpu_pod_exporter_torch.kernels import tanh_matmul as tm
 from tpu_pod_exporter_torch.loadgen import workload as wl
+
+pytestmark = pytest.mark.gpu
 
 # Two bf16 steps in [0.5, 1): the kernel and the plain version sum in f32 in
 # other orders and take tanh in f32 (tanhf against torch.tanh), so a result
@@ -40,22 +44,30 @@ def _operands(m, k, n, dev, offset=0, seed=0):
     return h, w
 
 
-@pytest.mark.parametrize("m,k,n,offset", [
-    (1, 1, 1, 0),
-    (17, 24, 40, 0),
-    (128, 128, 128, 0),
-    (130, 72, 200, 0),
-    (257, 1000, 4095, 0),
-    (64, 200, 136, 1),  # h not 16-byte aligned: element-wise staging
-    (33, 7, 9, 0),      # K and N not multiples of 8
-    (16, 0, 16, 0),     # empty sum: tanh(0) = 0
+@pytest.mark.parametrize("m,k,n,offset,kernel", [
+    (1, 1, 1, 0, "wmma"),
+    (17, 24, 40, 0, "wgmma"),
+    (128, 128, 128, 0, "wgmma"),
+    (130, 72, 200, 0, "wgmma"),
+    (32, 128, 128, 0, "wgmma"),
+    (257, 1000, 4096, 0, "wgmma"),  # ragged M and K tiles
+    (1, 64, 8, 0, "wgmma"),         # one row; N and K inside one tile
+    (300, 136, 264, 0, "wgmma"),    # ragged M, N and K; a W box wholly past N
+    (257, 1000, 4095, 0, "wmma"),   # N not a multiple of 8
+    (64, 200, 136, 1, "wmma"),      # h not 16-byte aligned: element-wise staging
+    (300, 136, 264, 1, "wmma"),
+    (33, 7, 9, 0, "wmma"),          # K and N not multiples of 8
+    (16, 0, 16, 0, "wmma"),         # empty sum: tanh(0) = 0
 ])
-def test_kernel_matches_plain(dev, m, k, n, offset):
+def test_kernel_matches_plain(dev, m, k, n, offset, kernel):
     h, w = _operands(m, k, n, dev, offset)
     before = tm.tanh_matmul.launches
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
     y = tm.tanh_matmul(h, w)
     torch.cuda.synchronize()
     assert tm.tanh_matmul.launches == before + 1
+    assert tm.tanh_matmul.launches_by_kernel == {
+        name: count + (name == kernel) for name, count in by_kernel.items()}
     assert y.shape == (m, n) and y.dtype == torch.bfloat16 and y.device == h.device
     err = (y.float() - tm.tanh_matmul_plain(h, w).float()).abs().max().item()
     assert err <= LAYER_ATOL, f"max_abs_err {err} > {LAYER_ATOL}"
@@ -84,6 +96,39 @@ def test_forward_launches_once_per_layer(dev):
     assert tm.tanh_matmul.launches == before + 3
     err = (out.float() - plain.float()).abs().max().item()
     assert err <= 2.0**-4
+
+
+def test_chain_goes_through_wgmma_only(dev):
+    fn, (params, x) = wl.flagship(width=256, depth=3, batch=64, device=dev)
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    out = fn(params, x)
+    torch.cuda.synchronize()
+    assert tm.tanh_matmul.launches_by_kernel == {
+        "wgmma": by_kernel["wgmma"] + 3, "wmma": by_kernel["wmma"]}
+    assert torch.isfinite(out.float()).all()
+
+
+def test_wgmma_launches_from_a_new_thread(dev):
+    # The burn runs in its own thread, where cached allocations leave no
+    # CUDA context current until the kernel's entry makes one so.
+    import threading
+
+    h, w = _operands(64, 128, 256, dev)
+    want = tm.tanh_matmul(h, w)
+    out: dict = {}
+
+    def run():
+        try:
+            out["y"] = tm.tanh_matmul(h, w)
+        except Exception as e:  # noqa: BLE001 - reported below
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert "error" not in out, out.get("error")
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], want)
 
 
 def test_backend_reads_the_allocator(dev):

@@ -4,8 +4,10 @@ A port of ``tpu_pod_exporter`` that imports ``torch`` and never ``jax``.
 It keeps the JAX package's module layout, so each counterpart sits at the
 same relative path:
 
-- ``kernels/tanh_matmul.py`` — the flagship layer ``tanh(h @ W)`` as a
-  hand-written CUDA C++ kernel for Hopper (``kernels/csrc/tanh_matmul.cu``);
+- ``kernels/tanh_matmul.py`` — the flagship layer ``tanh(h @ W)`` as
+  hand-written CUDA C++ kernels for Hopper, chosen by shape: wgmma fed by
+  TMA (``kernels/csrc/tanh_matmul_sm90.cu``) wherever TMA can address the
+  operands, wmma (``kernels/csrc/tanh_matmul.cu``) elsewhere;
 - ``loadgen/workload.py`` — the synthetic load (matmul chain, HBM fill);
 - ``backend/torchdev.py`` — the in-process device backend, reading the
   CUDA caching allocator;

@@ -24,8 +24,9 @@
 //   element by element with zeros past the edge; stores are masked.
 //
 // Layout is the JAX package's: h (M,K), W (K,N) indexed [in, out], y (M,N),
-// all row-major and contiguous. wgmma, TMA and a persistent grid are left
-// for later work.
+// all row-major and contiguous. The main path runs tanh_matmul_sm90.cu
+// (wgmma fed by TMA); this kernel takes the shapes TMA cannot address: K or
+// N not a multiple of 8, a misaligned h or W, K = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

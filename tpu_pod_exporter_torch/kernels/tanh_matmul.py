@@ -1,4 +1,4 @@
-"""``tanh_matmul``: the flagship layer ``y = tanh(h @ W)`` as one CUDA kernel.
+"""``tanh_matmul``: the flagship layer ``y = tanh(h @ W)`` as a CUDA kernel.
 
 Replaces the layer body that XLA fuses on the TPU,
 ``tpu_pod_exporter/loadgen/workload.py:40-43`` (``forward.layer``): bf16
@@ -7,20 +7,30 @@ bf16. Layout is the JAX package's, ``h @ W`` with ``W`` indexed
 ``[in, out]`` (not ``nn.Linear``'s ``[out, in]``).
 
 Bound on an H100 SXM at the main-path shape (M=4096, K=N=8192): 5.5e11
-operations take 0.56 ms at the 989 TFLOP/s dense bf16 peak, its 256 MiB of
-traffic 0.08 ms at 3.35 TB/s, so the tensor cores bound it. The kernel
-(``csrc/tanh_matmul.cu``) tiles 128x128 blocks over wmma bf16 fragments with
-f32 accumulators, stages K through shared memory in two cp.async buffers,
-and applies ``tanhf`` in the epilogue so the f32 pre-activation never
-reaches device memory. Ragged M, N and K are masked.
+operations take 0.556 ms at the 989 TFLOP/s dense bf16 peak, its 256 MiB of
+traffic 0.08 ms at 3.35 TB/s, so the tensor cores bound it.
 
-The source is compiled with ``nvcc`` at first CUDA use into
-``tpu_pod_exporter_torch/_build/`` (file name keyed by a hash of the source
-and flags) and bound through ``ctypes`` to a plain C entry point.
+Two hand kernels, chosen by shape before the launch (:func:`sm90_eligible`):
+
+- ``wgmma`` (``csrc/tanh_matmul_sm90.cu``, C entry ``tanh_matmul_bf16_sm90``)
+  for every shape TMA can address (K > 0, K and N multiples of 8, ``h`` and
+  ``w`` 16-byte aligned), the main path among them: a warp-specialised
+  kernel in which one producer thread keeps TMA loads of 128x64 slices of
+  ``h`` and 64x256 slices of ``w`` in flight through a 4-stage ring, and two
+  consumer warpgroups run ``wgmma.m64n256k16`` on them (``w`` read
+  MN-major, never transposed), with ``tanhf`` on the registers;
+- ``wmma`` (``csrc/tanh_matmul.cu``, C entry ``tanh_matmul_bf16``) for the
+  rest (K or N not a multiple of 8, a misaligned ``h`` or ``w``, K = 0):
+  128x128 tiles of wmma fragments, two cp.async stages, masked edges.
+
+Both sources are compiled by one ``nvcc`` call at first CUDA use into one
+library in ``tpu_pod_exporter_torch/_build/`` (file name keyed by a hash of
+every file under ``csrc/`` and the flags) and bound through ``ctypes``.
 
 :func:`tanh_matmul` takes :func:`tanh_matmul_plain` only for CPU tensors.
-For CUDA tensors it launches the kernel or raises. ``tanh_matmul.launches``
-counts kernel launches.
+For CUDA tensors it launches one of the two kernels or raises; there is no
+fallback from one to the other. ``tanh_matmul.launches`` counts kernel
+launches, ``tanh_matmul.launches_by_kernel`` counts them by kernel.
 """
 
 from __future__ import annotations
@@ -36,13 +46,16 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "tanh_matmul.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, into the log
 )
+
+# Kernel name -> its C entry in the library.
+ENTRIES = {"wgmma": "tanh_matmul_bf16_sm90", "wmma": "tanh_matmul_bf16"}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -67,16 +80,27 @@ def find_nvcc() -> str:
     )
 
 
+def sources() -> list[Path]:
+    """The ``.cu`` files that make the library, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    """Where the shared library for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
+    """Where the shared library for the current sources and flags lives:
+    keyed by every file under ``csrc/``, so that a change to any of them
+    builds anew."""
+    digest = hashlib.sha256()
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        digest.update(path.relative_to(CSRC).as_posix().encode() + b"\0")
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libtanh_matmul-{digest.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, str]:
-    """Compile the kernel unless the library for this source exists;
-    return its path and nvcc's output ("" when it was already built).
+    """Compile both kernels in one nvcc call, unless the library for these
+    sources exists; return its path and nvcc's output ("" when it was
+    already built).
 
     Writes to a temporary name and renames, so concurrent builders never
     load a half-written file. Raises RuntimeError with nvcc's output when
@@ -88,7 +112,7 @@ def build() -> tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -108,15 +132,17 @@ def _library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()[0]))
-            fn = lib.tanh_matmul_bf16
-            # Pointers and the stream as c_void_p: left to ctypes' default
-            # they would pass as 32-bit ints and lose their high bits.
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
+            for entry in ENTRIES.values():
+                fn = getattr(lib, entry)
+                # Pointers and the stream as c_void_p: left to ctypes'
+                # default they would pass as 32-bit ints and lose their
+                # high bits.
+                fn.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p,
+                ]
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -141,6 +167,43 @@ def _check(h: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"dimension past int32: {tuple(h.shape)} @ {tuple(w.shape)}")
 
 
+def sm90_eligible(m: int, n: int, k: int, h_ptr: int, w_ptr: int) -> bool:
+    """Whether the wgmma kernel takes h (m,k) at ``h_ptr`` times w (k,n) at
+    ``w_ptr``: TMA needs row strides of 16 bytes (k and n multiples of 8
+    bf16 values) and 16-byte aligned bases, and the kernel a nonempty sum.
+    Any m >= 1 is fine: TMA fills rows past the matrix with zeros."""
+    return k > 0 and k % 8 == 0 and n % 8 == 0 and h_ptr % 16 == 0 and w_ptr % 16 == 0
+
+
+def launch(kernel: str, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the hand kernel ``kernel`` ("wgmma" or "wmma") on CUDA
+    operands and return y; raises if the launch fails. Counts the launch."""
+    _check(h, w)
+    if h.device.type != "cuda":
+        raise ValueError(f"{kernel} kernel runs on cuda, not {h.device}")
+    entry = ENTRIES[kernel]
+    m, k = h.shape
+    n = w.shape[1]
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=h.device)
+    if y.numel() == 0:
+        return y
+    lib = _library()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = getattr(lib, entry)(
+            h.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k, stream
+        )
+    if err < 0:
+        raise RuntimeError(
+            f"{entry}: cuTensorMapEncodeTiled failed with CUresult {-err}"
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    tanh_matmul.launches += 1
+    tanh_matmul.launches_by_kernel[kernel] += 1
+    return y
+
+
 def tanh_matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``tanh(h @ w)``: h (M,K) and w (K,N) bf16, contiguous; returns (M,N) bf16."""
     _check(h, w)
@@ -150,19 +213,9 @@ def tanh_matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"tanh_matmul runs on cuda or cpu, not {h.device}")
     m, k = h.shape
     n = w.shape[1]
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=h.device)
-    if y.numel() == 0:
-        return y
-    lib = _library()
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.tanh_matmul_bf16(
-            h.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k, stream
-        )
-    if err != 0:
-        raise RuntimeError(f"tanh_matmul launch failed: CUDA error {err}")
-    tanh_matmul.launches += 1
-    return y
+    eligible = sm90_eligible(m, n, k, h.data_ptr(), w.data_ptr())
+    return launch("wgmma" if eligible else "wmma", h, w)
 
 
 tanh_matmul.launches = 0
+tanh_matmul.launches_by_kernel = {kernel: 0 for kernel in ENTRIES}
