@@ -21,7 +21,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
 5. closed    — the main path: hwcheck's live exporter on the torch backend,
    loop       scraped over HTTP while a 16 GiB fill and the full-size burn
                load the card; memory must rise under load and fall after,
-               and every launch is on the wgmma kernel.
+               and every launch is on the wgmma kernel;
+6. sgd       — sgd_update_ against sgd_update_plain on the card, bit for
+               bit, at 1, 7, 8 and 4097 elements, misaligned views and the
+               full stacked layers (8 x 8192 x 8192); then, in turns, the
+               kernel, the plain version and ``p.add_(g, alpha=-lr)`` (the
+               nearest one-call update, not the same rounding) at full size
+               beside the bound;
+7. grad      — the gradient of the loss through the wgmma chain against the
+               gradient through the plain chain at width 8192, depth 2,
+               batch 4096;
+8. train     — the training path: sharded_train_step on a mesh of one card,
+               first 5 steps at width 64 that must descend, then the full
+               size (width 8192, depth 8, batch 4096) for 10 s: step time,
+               TFLOP/s, one step split into forward, backward and update,
+               every forward launch on wgmma and one sgd launch a step;
+9. cli       — the load CLI's burn, hbm and sharded modes as subprocesses
+               (each exits 0 and prints its line), ``--mode parallel``
+               refused, and ``entry()``'s output on the card.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -32,10 +49,13 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -69,6 +89,22 @@ LAYER_ATOL = 2.0**-7
 # its size about the same per layer).
 CHAIN_ATOL = 2.0**-4
 BURN_SECONDS = 10.0
+# Training: SGD at the JAX step's learning rate; the gradient checked at
+# depth 2 against the plain chain (f32 products and tanh, as in JAX). The
+# kernels' backward takes 1 - y**2 from the bf16 y, which puts the two
+# gradients under 1% of max|grad| apart on the CPU at small widths.
+LR = 1e-2
+GRAD_DEPTH = 2
+GRAD_RTOL = 2.0**-6
+TRAIN_SECONDS = 10.0
+# (elements, p offset, g offset): vector body and scalar tail, misaligned
+# views (element by element), and the full stacked layers.
+SGD_CASES = (
+    (1, 0, 0), (7, 0, 0), (8, 0, 0), (4097, 0, 0),
+    (4097, 1, 0), (4097, 3, 3), (1 << 20, 0, 1),
+    (DEPTH * WIDTH * WIDTH, 0, 0),
+)
+REPO = Path(__file__).resolve().parent
 
 
 def emit(phase: str, **fields) -> None:
@@ -103,10 +139,12 @@ def time_in_turns(fns: dict, reps: int = 20, calls: int = 5) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def reset_counts(tm) -> None:
+def reset_counts(tm, sgd=None) -> None:
     tm.tanh_matmul.launches = 0
     for kernel in tm.tanh_matmul.launches_by_kernel:
         tm.tanh_matmul.launches_by_kernel[kernel] = 0
+    if sgd is not None:
+        sgd.sgd_update_.launches = 0
 
 
 def layer_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
@@ -256,9 +294,200 @@ def phase_closed_loop(dev, tm, hwcheck, uuid: str) -> dict:
     return by_kernel
 
 
+def misaligned(t, offset: int):
+    """A contiguous copy of 1-D ``t`` starting ``offset`` elements into a buffer."""
+    buf = torch.empty((t.numel() + offset,), dtype=t.dtype, device=t.device)
+    return buf[offset:].copy_(t)
+
+
+def phase_sgd(dev, sgd) -> dict:
+    """sgd_update_ against the plain version, bit for bit; then the times at
+    full size. Returns its numbers for the kernels line."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for n, p_offset, g_offset in SGD_CASES:
+        p = torch.randn((n,), generator=gen, device=dev).to(torch.bfloat16)
+        g = (0.05 * torch.randn((n,), generator=gen, device=dev)).to(torch.bfloat16)
+        want = sgd.sgd_update_plain(p.clone(), g, LR)
+        p, g = misaligned(p, p_offset), misaligned(g, g_offset)
+        before = sgd.sgd_update_.launches
+        sgd.sgd_update_(p, g, LR)
+        torch.cuda.synchronize()
+        launched = sgd.sgd_update_.launches - before
+        equal = bool(torch.equal(p, want))
+        err = (p.float() - want.float()).abs().max().item()
+        emit("sgd", n=n, p_offset=p_offset, g_offset=g_offset, launched=launched,
+             bit_equal=equal, max_abs_err=err)
+        if launched != 1 or not equal:
+            raise AssertionError(f"sgd n={n} offsets {p_offset},{g_offset}: "
+                                 f"{launched} launches, bit_equal={equal}")
+        del p, g, want
+    p = torch.randn((DEPTH, WIDTH, WIDTH), generator=gen, device=dev).to(torch.bfloat16)
+    g = (0.05 * torch.randn((DEPTH, WIDTH, WIDTH), generator=gen, device=dev)).to(torch.bfloat16)
+    ms = time_in_turns({
+        "kernel": lambda: sgd.sgd_update_(p, g, LR),
+        "plain": lambda: sgd.sgd_update_plain(p, g, LR),
+        "yardstick": lambda: p.add_(g, alpha=-LR),
+    })
+    # p read and written, g read, each once.
+    moved = 3 * p.numel() * p.element_size()
+    bound = moved / PEAK_HBM_BYTES_PER_S * 1e3
+    emit("sgd_time", shape=list(p.shape), ms=ms, bound_ms=bound, bound_by="bytes",
+         bytes=moved, share_of_bound={name: bound / t for name, t in ms.items()},
+         yardstick="p.add_(g, alpha=-lr): the nearest one-call update, not the same rounding")
+    del p, g
+    return {"max_abs_err": 0.0, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": "bytes",
+            # No one PyTorch call computes this update (the yardstick rounds
+            # neither lr nor lr * g to bf16).
+            "library_ms": None}
+
+
+def chain_grad(layers, x, y, layer_fn):
+    """(loss, gradient of the stacked layers) of the f32 MSE through
+    ``layer_fn`` applied layer by layer."""
+    layers = layers.detach().clone().requires_grad_()
+    h = x
+    for w in layers.unbind(0):
+        h = layer_fn(h, w)
+    loss = torch.mean((h.float() - y.float()) ** 2)
+    loss.backward()
+    return loss.detach(), layers.grad
+
+
+def phase_grad(dev, tm, wl) -> None:
+    params = wl.init_params(width=WIDTH, depth=GRAD_DEPTH, seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((BATCH, WIDTH), generator=gen, device=dev).to(torch.bfloat16)
+    y = torch.zeros_like(x)
+    reset_counts(tm)
+    loss, grad = chain_grad(params["layers"], x, y, tm.tanh_matmul)
+    check_all_wgmma(tm, "grad", GRAD_DEPTH)
+    ref_loss, ref = chain_grad(params["layers"], x, y, tm.tanh_matmul_plain)
+    torch.cuda.synchronize()
+    scale = ref.float().abs().max().item()
+    rel = (grad.float() - ref.float()).abs().max().item() / scale
+    per_layer = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                 for a, b in zip(grad, ref)]
+    emit("grad", width=WIDTH, depth=GRAD_DEPTH, batch=BATCH, loss=loss.item(),
+         plain_loss=ref_loss.item(), rel_err=rel, rel_err_by_layer=per_layer,
+         rtol=GRAD_RTOL, max_abs_grad=scale)
+    if not (torch.isfinite(grad.float()).all() and rel <= GRAD_RTOL):
+        raise AssertionError(f"grad: max|dgrad| / max|grad| = {rel} > {GRAD_RTOL}")
+
+
+def phase_train(dev, tm, sgd, sharded) -> dict:
+    """The training path on a mesh of one card. Returns the launches by
+    kernel of the full-size run."""
+    import torch.distributed as dist
+
+    mesh = sharded.make_mesh(1)
+    step, params, (x, y) = sharded.sharded_train_step(mesh, width=64, depth=2, batch=16,
+                                                       lr=LR)
+    losses = []
+    for _ in range(5):
+        params, loss = step(params, x, y)
+        losses.append(loss.item())
+    descends = all(b < a for a, b in zip(losses, losses[1:]))
+    emit("train_descent", width=64, depth=2, batch=16, losses=losses, descends=descends)
+    if not (all(map(math.isfinite, losses)) and descends):
+        raise AssertionError(f"losses do not descend: {losses}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, params, (x, y) = sharded.sharded_train_step(mesh, WIDTH, DEPTH, BATCH, LR)
+    params, loss = step(params, x, y)
+    torch.cuda.synchronize()
+    # One step split into its phases by CUDA events.
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    layers = params["layers"].detach().requires_grad_()
+    events[0].record()
+    share = step.forward(layers, x, y)
+    events[1].record()
+    share.backward()
+    events[2].record()
+    step.update(params, layers.grad)
+    events[3].record()
+    events[3].synchronize()
+    split = {name: events[i].elapsed_time(events[i + 1])
+             for i, name in enumerate(("forward", "backward", "update"))}
+    del layers, share
+
+    reset_counts(tm, sgd)
+    losses, steps = [], 0
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < TRAIN_SECONDS:
+        params, loss = step(params, x, y)
+        losses.append(loss.item())
+        steps += 1
+    dt = time.monotonic() - t0
+    clocks_power = nvidia_smi("clocks.sm,power.draw")
+    by_kernel = {**tm.tanh_matmul.launches_by_kernel, "sgd": sgd.sgd_update_.launches}
+    flops_per_step = 2 * BATCH * WIDTH * WIDTH * (3 * DEPTH - 1)
+    emit("train", width=WIDTH, depth=DEPTH, batch=BATCH, lr=LR, steps=steps, seconds=dt,
+         step_ms=dt / steps * 1e3, tflops=flops_per_step * steps / dt / 1e12,
+         flops_per_step="2*B*W^2*(3D-1): D forward and 2D-1 backward products",
+         split_ms=split, first_loss=losses[0], last_loss=losses[-1],
+         peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+         launches_by_kernel=by_kernel, clocks_sm_power_draw=clocks_power)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError("train: a loss is not finite")
+    check_all_wgmma(tm, "train", steps * DEPTH)
+    if by_kernel["sgd"] != steps:
+        raise AssertionError(f"train: {by_kernel['sgd']} sgd launches for {steps} steps")
+    del step, params, x, y
+    dist.destroy_process_group()
+    return by_kernel
+
+
+def run_cli(*args: str) -> str:
+    """The load CLI as a subprocess; returns its output, raising unless it
+    exits 0."""
+    proc = subprocess.run([sys.executable, "-m", "tpu_pod_exporter_torch.loadgen", *args],
+                          capture_output=True, text=True, timeout=180, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"loadgen {' '.join(args)}: rc={proc.returncode}\n"
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout.strip()
+
+
+def phase_cli(dev) -> None:
+    from tpu_pod_exporter_torch.entry import entry
+
+    width, batch, depth = str(WIDTH), str(BATCH), str(DEPTH)
+    lines = {
+        "burn": run_cli("--mode", "burn", "--width", width, "--batch", batch,
+                        "--iters", str(ITERS), "--seconds", "3"),
+        "hbm": run_cli("--mode", "hbm", "--gib", "1", "--seconds", "1"),
+        "sharded": run_cli("--mode", "sharded", "--devices", "1", "--width", width,
+                           "--depth", depth, "--batch", batch, "--seconds", "3"),
+    }
+    refused = subprocess.run(
+        [sys.executable, "-m", "tpu_pod_exporter_torch.loadgen", "--mode", "parallel"],
+        capture_output=True, text=True, timeout=60, cwd=REPO)
+    fn, args = entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    emit("cli", lines=lines, parallel_rc=refused.returncode,
+         parallel_stderr=refused.stderr.strip()[-200:], entry_shape=list(out.shape),
+         entry_device=str(out.device))
+    patterns = {
+        "burn": r"^\d+ steps in [\d.]+s → [\d.]+ TFLOP/s$",
+        "hbm": r"^holding 1\.00 GiB on cuda:0$",
+        "sharded": r"^mesh \{'data': 1, 'model': 1\} \| \d+ steps in [\d.]+s \| loss [\d.]+$",
+    }
+    for mode, pattern in patterns.items():
+        if not re.match(pattern, lines[mode].splitlines()[-1]):
+            raise AssertionError(f"loadgen --mode {mode} printed {lines[mode]!r}")
+    if refused.returncode == 0 or "not ported yet" not in refused.stderr:
+        raise AssertionError(f"--mode parallel was not refused: rc={refused.returncode}")
+    if out.shape != (32, 128) or out.device.type != "cuda" or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"entry(): {tuple(out.shape)} on {out.device}")
+
+
 def main() -> int:
     from tpu_pod_exporter_torch import hwcheck
+    from tpu_pod_exporter_torch.kernels import sgd
     from tpu_pod_exporter_torch.kernels import tanh_matmul as tm
+    from tpu_pod_exporter_torch.loadgen import sharded
     from tpu_pod_exporter_torch.loadgen import workload as wl
 
     if not torch.cuda.is_available():
@@ -283,16 +512,33 @@ def main() -> int:
     records = phase_kernel(dev, tm)
     phase_workload(dev, tm, wl)
     torch.cuda.empty_cache()
-    launches = phase_closed_loop(dev, tm, hwcheck, uuid)
+    closed_loop = phase_closed_loop(dev, tm, hwcheck, uuid)
+    torch.cuda.empty_cache()
+    records["sgd"] = phase_sgd(dev, sgd)
+    phase_grad(dev, tm, wl)
+    torch.cuda.empty_cache()
+    train = phase_train(dev, tm, sgd, sharded)
+    torch.cuda.empty_cache()
+    phase_cli(dev)
 
-    print(json.dumps({"kernels": [{
+    # Launches on the main paths: the closed loop and the training run.
+    by_path = {kernel: {"closed_loop": closed_loop.get(kernel, 0), "train": train[kernel]}
+               for kernel in (*SOURCES, "sgd")}
+    kernels = [{
         "name": tm.ENTRIES[kernel],
         "route": "cuda",
         "source": f"tpu_pod_exporter_torch/kernels/csrc/{source}",
         "replaces": "tpu_pod_exporter/loadgen/workload.py:40",
-        "launches": launches[kernel],
-        **records[kernel],
-    } for kernel, source in SOURCES.items()]}))
+    } for kernel, source in SOURCES.items()] + [{
+        "name": "sgd_update_bf16",
+        "route": "cuda",
+        "source": "tpu_pod_exporter_torch/kernels/csrc/sgd_update.cu",
+        "replaces": "tpu_pod_exporter/loadgen/sharded.py:103",
+    }]
+    for record, kernel in zip(kernels, (*SOURCES, "sgd")):
+        record.update(launches=sum(by_path[kernel].values()),
+                      launches_by_path=by_path[kernel], **records[kernel])
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """The port on a CUDA card: both tanh_matmul kernels (wgmma for shapes TMA
 can address, wmma for the rest) against the plain version at ragged and
-misaligned shapes, which kernel each shape launched, the backend reading
-the allocator, and a small closed loop. Every test carries the ``gpu``
+misaligned shapes, which kernel each shape launched, the SGD update kernel
+against its plain version bit for bit, the gradient through the kernels,
+a training step on one card, the backend reading the allocator, and a
+small closed loop. Every test carries the ``gpu``
 marker, needs a CUDA device and skips without one; on a machine with a card
 run
 
@@ -13,7 +15,9 @@ This file imports no JAX, so it runs where only torch is installed.
 import pytest
 import torch
 
+from tpu_pod_exporter_torch.kernels import sgd
 from tpu_pod_exporter_torch.kernels import tanh_matmul as tm
+from tpu_pod_exporter_torch.loadgen import sharded
 from tpu_pod_exporter_torch.loadgen import workload as wl
 
 pytestmark = pytest.mark.gpu
@@ -129,6 +133,128 @@ def test_wgmma_launches_from_a_new_thread(dev):
     assert "error" not in out, out.get("error")
     torch.cuda.synchronize()
     assert torch.equal(out["y"], want)
+
+
+def _misaligned(t, offset):
+    """A contiguous copy of 1-D ``t`` starting ``offset`` elements into a buffer."""
+    buf = torch.empty((t.numel() + offset,), dtype=t.dtype, device=t.device)
+    return buf[offset:].copy_(t)
+
+
+@pytest.mark.parametrize("n,p_offset,g_offset", [
+    (1, 0, 0), (7, 0, 0), (8, 0, 0), (4097, 0, 0),  # vector body and scalar tail
+    (4096, 1, 0),      # p off 16-byte alignment: element by element
+    (4097, 3, 3),      # both off by the same amount
+    (1 << 20, 0, 1),   # g off alignment
+    (3_000_017, 0, 0),  # more chunks than the grid has threads
+])
+@pytest.mark.parametrize("lr", [1e-2, 0.1])
+def test_sgd_update_matches_plain_bit_for_bit(dev, n, p_offset, g_offset, lr):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    p = torch.randn((n,), generator=gen, device=dev).to(torch.bfloat16)
+    g = (0.05 * torch.randn((n,), generator=gen, device=dev)).to(torch.bfloat16)
+    want = sgd.sgd_update_plain(p.clone(), g, lr)
+    p, g = _misaligned(p, p_offset), _misaligned(g, g_offset)
+    before = sgd.sgd_update_.launches
+    assert sgd.sgd_update_(p, g, lr) is p
+    torch.cuda.synchronize()
+    assert sgd.sgd_update_.launches == before + 1
+    assert torch.equal(p, want)
+
+
+def test_sgd_update_rejects_and_skips_empty(dev):
+    p = torch.zeros((8,), dtype=torch.bfloat16, device=dev)
+    before = sgd.sgd_update_.launches
+    with pytest.raises(ValueError):
+        sgd.sgd_update_(p, p.cpu(), 1e-2)
+    with pytest.raises(ValueError):
+        sgd.sgd_update_(p, p.float(), 1e-2)
+    empty = p[:0]
+    assert sgd.sgd_update_(empty, empty.clone(), 1e-2) is empty
+    assert sgd.sgd_update_.launches == before
+
+
+# The gradient through the kernels against the gradient through the plain
+# chain (f32 products, f32 tanh, as JAX's): the kernels' backward takes
+# 1 - y**2 from the bf16 y, which puts the two under 1% of max|grad| apart.
+GRAD_RTOL = 2.0**-6
+
+
+def _grads(layers, x, y, layer_fn):
+    layers = layers.detach().clone().requires_grad_()
+    h = x
+    for w in layers.unbind(0):
+        h = layer_fn(h, w)
+    loss = torch.mean((h.float() - y.float()) ** 2)
+    loss.backward()
+    return loss.detach(), layers.grad
+
+
+def test_gradient_through_wgmma_matches_plain_chain(dev):
+    params = wl.init_params(width=512, depth=3, seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((128, 512), generator=gen, device=dev).to(torch.bfloat16)
+    y = torch.zeros_like(x)
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    loss, grad = _grads(params["layers"], x, y, tm.tanh_matmul)
+    assert tm.tanh_matmul.launches_by_kernel["wgmma"] == by_kernel["wgmma"] + 3
+    ref_loss, ref = _grads(params["layers"], x, y, tm.tanh_matmul_plain)
+    torch.cuda.synchronize()
+    assert grad.dtype == torch.bfloat16 and grad.device == x.device
+    assert abs(loss.item() - ref_loss.item()) <= 1e-2 * ref_loss.item()
+    rel = ((grad.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    assert rel <= GRAD_RTOL, f"max|dgrad| / max|grad| = {rel}"
+
+
+def test_backward_from_a_new_thread(dev):
+    import threading
+
+    params = wl.init_params(width=256, depth=2, seed=3, device=dev)
+    x = torch.ones((64, 256), dtype=torch.bfloat16, device=dev)
+    want = _grads(params["layers"], x, torch.zeros_like(x), tm.tanh_matmul)[1]
+    out: dict = {}
+
+    def run():
+        try:
+            out["grad"] = _grads(params["layers"], x, torch.zeros_like(x), tm.tanh_matmul)[1]
+        except Exception as e:  # noqa: BLE001 - reported below
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and "error" not in out, out.get("error")
+    torch.cuda.synchronize()
+    assert torch.equal(out["grad"], want)
+
+
+def test_f32_product_of_bf16_operands(dev):
+    # A group of more than one rank sums its partial products in f32; on
+    # the card they come from torch.mm's out_dtype.
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a = torch.randn((64, 96), generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn((96, 48), generator=gen, device=dev).to(torch.bfloat16)
+    got = sharded._f32_product(a.t().contiguous().t(), b)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, a.float() @ b.float(), rtol=1e-5, atol=1e-4)
+
+
+def test_sharded_step_descends_on_one_card(dev):
+    import torch.distributed as dist
+
+    try:
+        step, params, (x, y) = sharded.sharded_train_step(
+            sharded.make_mesh(1), width=64, depth=2, batch=16)
+        assert params["layers"].device == x.device == dev
+        launches = sgd.sgd_update_.launches
+        losses = []
+        for _ in range(5):
+            params, loss = step(params, x, y)
+            losses.append(loss.item())
+    finally:
+        dist.destroy_process_group()
+    assert sgd.sgd_update_.launches == launches + 5
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
 
 
 def test_backend_reads_the_allocator(dev):

@@ -71,6 +71,9 @@ def test_entry_modules_load_no_jax():
         "import tpu_pod_exporter_torch.loadgen.workload\n"
         "import tpu_pod_exporter_torch.backend.torchdev\n"
         "import tpu_pod_exporter_torch.kernels.tanh_matmul\n"
+        "import tpu_pod_exporter_torch.kernels.sgd, tpu_pod_exporter_torch.entry\n"
+        "import tpu_pod_exporter_torch.loadgen.sharded\n"
+        "import tpu_pod_exporter_torch.loadgen.__main__\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

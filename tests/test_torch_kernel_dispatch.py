@@ -41,10 +41,18 @@ def test_every_kernel_has_an_entry_and_a_count():
 
 
 def test_sources_are_both_kernels():
-    assert [p.name for p in tm.sources()] == ["tanh_matmul.cu", "tanh_matmul_sm90.cu"]
+    # Both tanh_matmul kernels, and the SGD update built into the same library.
+    assert [p.name for p in tm.sources()] == [
+        "sgd_update.cu", "tanh_matmul.cu", "tanh_matmul_sm90.cu"]
 
 
-@pytest.mark.parametrize("name", ["tanh_matmul.cu", "tanh_matmul_sm90.cu"])
+def test_every_c_entry_has_its_own_argtypes():
+    assert set(tm.ENTRIES.values()) | {"sgd_update_bf16"} == set(tm.SIGNATURES)
+    assert len(tm.SIGNATURES["sgd_update_bf16"]) == 5  # p, g, n, lr, stream
+    assert all(len(tm.SIGNATURES[e]) == 7 for e in tm.ENTRIES.values())
+
+
+@pytest.mark.parametrize("name", ["tanh_matmul.cu", "tanh_matmul_sm90.cu", "sgd_update.cu"])
 def test_library_path_changes_with_either_source(monkeypatch, name):
     before = tm.library_path()
     read = pathlib.Path.read_bytes

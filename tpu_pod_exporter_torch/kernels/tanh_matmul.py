@@ -23,14 +23,25 @@ Two hand kernels, chosen by shape before the launch (:func:`sm90_eligible`):
   rest (K or N not a multiple of 8, a misaligned ``h`` or ``w``, K = 0):
   128x128 tiles of wmma fragments, two cp.async stages, masked edges.
 
-Both sources are compiled by one ``nvcc`` call at first CUDA use into one
+Every source under ``csrc/`` (these two and ``sgd_update.cu``, see
+:mod:`.sgd`) is compiled by one ``nvcc`` call at first CUDA use into one
 library in ``tpu_pod_exporter_torch/_build/`` (file name keyed by a hash of
 every file under ``csrc/`` and the flags) and bound through ``ctypes``.
 
 :func:`tanh_matmul` takes :func:`tanh_matmul_plain` only for CPU tensors.
 For CUDA tensors it launches one of the two kernels or raises; there is no
 fallback from one to the other. ``tanh_matmul.launches`` counts kernel
-launches, ``tanh_matmul.launches_by_kernel`` counts them by kernel.
+launches, ``tanh_matmul.launches_by_kernel`` counts them by kernel; both
+count forward launches only.
+
+The gradient (:class:`TanhMatmul`) is the same code on both devices:
+``g = tanh_backward(dy, y)``, ``dh = g @ w.T``, ``dw = h.T @ g``, bf16
+operands with f32 accumulation (plain products, left to ``torch.matmul`` as
+the JAX package leaves them to XLA). It takes ``1 - y**2`` from the bf16
+output ``y``; JAX saves the f32 ``t = tanh(h @ w)`` and takes ``g`` in f32.
+That puts the two gradients 0.7-0.8% of max|grad| apart at (width, depth,
+batch) = (64,2,16) to (256,4,64) on the CPU (``tests/test_torch_train.py``),
+so the parity tests allow 2**-6 (1.6%) of max|grad|.
 """
 
 from __future__ import annotations
@@ -56,6 +67,21 @@ NVCC_FLAGS = (
 
 # Kernel name -> its C entry in the library.
 ENTRIES = {"wgmma": "tanh_matmul_bf16_sm90", "wmma": "tanh_matmul_bf16"}
+# Every C entry in the library -> its argument types. Pointers and the
+# stream go as c_void_p: left to ctypes' default they would pass as 32-bit
+# ints and lose their high bits.
+_TANH_MATMUL_ARGS = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # h, w, y
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,           # M, N, K
+    ctypes.c_void_p,                                    # stream
+)
+SIGNATURES = {
+    "tanh_matmul_bf16_sm90": _TANH_MATMUL_ARGS,
+    "tanh_matmul_bf16": _TANH_MATMUL_ARGS,
+    # p, g, n, lr, stream (kernels/sgd.py)
+    "sgd_update_bf16": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                        ctypes.c_float, ctypes.c_void_p),
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -127,21 +153,16 @@ def build() -> tuple[Path, str]:
     return target, proc.stderr + proc.stdout
 
 
-def _library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
+    """The port's kernel library, built at first use, with the argument
+    types of every C entry in :data:`SIGNATURES` set."""
     global _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()[0]))
-            for entry in ENTRIES.values():
+            for entry, argtypes in SIGNATURES.items():
                 fn = getattr(lib, entry)
-                # Pointers and the stream as c_void_p: left to ctypes'
-                # default they would pass as 32-bit ints and lose their
-                # high bits.
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p,
-                ]
+                fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -187,7 +208,7 @@ def launch(kernel: str, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((m, n), dtype=torch.bfloat16, device=h.device)
     if y.numel() == 0:
         return y
-    lib = _library()
+    lib = library()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = getattr(lib, entry)(
@@ -204,8 +225,7 @@ def launch(kernel: str, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def tanh_matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``tanh(h @ w)``: h (M,K) and w (K,N) bf16, contiguous; returns (M,N) bf16."""
+def _forward(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(h, w)
     if h.device.type == "cpu":
         return tanh_matmul_plain(h, w)
@@ -215,6 +235,30 @@ def tanh_matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n = w.shape[1]
     eligible = sm90_eligible(m, n, k, h.data_ptr(), w.data_ptr())
     return launch("wgmma" if eligible else "wmma", h, w)
+
+
+class TanhMatmul(torch.autograd.Function):
+    """``tanh(h @ w)`` with its gradient; forward as :func:`tanh_matmul`."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        y = _forward(h, w)
+        ctx.save_for_backward(h, w, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        h, w, y = ctx.saved_tensors
+        g = torch.ops.aten.tanh_backward(dy, y)
+        dh = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = h.t() @ g if ctx.needs_input_grad[1] else None
+        return dh, dw
+
+
+def tanh_matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``tanh(h @ w)``: h (M,K) and w (K,N) bf16, contiguous; returns (M,N)
+    bf16, differentiable in both operands."""
+    return TanhMatmul.apply(h, w)
 
 
 tanh_matmul.launches = 0
