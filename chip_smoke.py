@@ -37,8 +37,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                TFLOP/s, one step split into forward, backward and update,
                every forward launch on wgmma and one sgd launch a step;
 9. cli       — the load CLI's burn, hbm and sharded modes as subprocesses
-               (each exits 0 and prints its line), ``--mode parallel``
-               refused, and ``entry()``'s output on the card.
+               (each exits 0 and prints its line), and ``entry()``'s output
+               on the card;
+10. online    — ring attention's running-softmax kernel against
+    softmax     online_softmax_update_plain at its edge cases (the first
+               step, Tq = 1, Tkv = 1, ragged Tkv, scores scaled 30x30, a row
+               past 48 KiB) and at the ring's shape at --scale 1024; then,
+               in turns, the kernel and the plain version beside the bound;
+11. parallel  — the collective programs on a world of one card at
+               --scale 1024: one step of ring, Ulysses, pipeline, MoE and
+               FSDP each against its reference (f32, TF32 off), and a ring
+               step with q, k, v drawn apart; each step's time, one ring
+               step split into its products and the kernel,
+               one kernel launch a ring step; then the numeric selftest
+               (``--n 1 --checks all``) as a subprocess, ``entry.
+               dryrun_multichip(1)``, and the CLI's ``--mode parallel`` for
+               every program (multislice refused: one card is not an even
+               count).
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -104,6 +119,34 @@ SGD_CASES = (
     (4097, 1, 0), (4097, 3, 3), (1 << 20, 0, 1),
     (DEPTH * WIDTH * WIDTH, 0, 0),
 )
+# Ring attention's running softmax: (Tq, Tkv, D, d, first step, score
+# scale). The ring's shape at --scale 1024 on one card is T = 4096, d = 8192.
+RING_T, RING_D = 4096, 8192
+SOFTMAX_CASES = (
+    (64, 256, 64, 64, True, 1.0),        # the first step: m = -inf, l = 0
+    (1, 4096, 8192, 8192, False, 1.0),   # Tq = 1
+    (33, 1, 16, 16, True, 1.0),          # Tkv = 1
+    (17, 1000, 48, 16, False, 1.0),      # Tkv not a multiple of the block
+    (40, 4097, 24, 4, True, 900.0),      # q and k scaled 30x: scores 900x
+    (8, 20000, 32, 64, False, 1.0),      # a row past 48 KiB of shared memory
+    (RING_T, RING_T, RING_D, RING_D, True, RING_D**0.5),
+    (RING_T, RING_T, RING_D, RING_D, False, RING_D**0.5),
+)
+# m is a max of the same f32 quotients (true division by the same correctly
+# rounded sqrt): equal. p and l differ by expf against torch.exp and the
+# order of the row sum, a few f32 ulps; o is scaled by the same corr. The
+# absolute floor lies far below any p that matters (p underflows near 1e-38).
+SOFTMAX_RTOL, SOFTMAX_ATOL = 1e-5, 1e-30
+# The collective programs on one card, at the scale that gives the
+# pipeline the flagship's width 8192 and batch 4096; each is held against
+# its reference in f32 (TF32 off) at the numeric selftest's tolerances
+# (rtol = atol), the FSDP loss in absolute terms.
+PAR_SCALE = 1024
+PAR_TOL = {"ring": 2e-5, "ulysses": 2e-5, "pipeline": 2e-4, "moe": 2e-4, "fsdp": 2e-5}
+FSDP_LOSS_ATOL = 1e-5
+# The programs draw q = k = v, as the JAX package does, which makes each
+# row's softmax one-hot at d = 8192; one more ring step at the same shape
+# draws them apart (scores of unit spread), at the ring's tolerance.
 REPO = Path(__file__).resolve().parent
 
 
@@ -139,12 +182,14 @@ def time_in_turns(fns: dict, reps: int = 20, calls: int = 5) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def reset_counts(tm, sgd=None) -> None:
+def reset_counts(tm, sgd=None, osm=None) -> None:
     tm.tanh_matmul.launches = 0
     for kernel in tm.tanh_matmul.launches_by_kernel:
         tm.tanh_matmul.launches_by_kernel[kernel] = 0
     if sgd is not None:
         sgd.sgd_update_.launches = 0
+    if osm is not None:
+        osm.online_softmax_update_.launches = 0
 
 
 def layer_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
@@ -460,15 +505,10 @@ def phase_cli(dev) -> None:
         "sharded": run_cli("--mode", "sharded", "--devices", "1", "--width", width,
                            "--depth", depth, "--batch", batch, "--seconds", "3"),
     }
-    refused = subprocess.run(
-        [sys.executable, "-m", "tpu_pod_exporter_torch.loadgen", "--mode", "parallel"],
-        capture_output=True, text=True, timeout=60, cwd=REPO)
     fn, args = entry()
     out = fn(*args)
     torch.cuda.synchronize()
-    emit("cli", lines=lines, parallel_rc=refused.returncode,
-         parallel_stderr=refused.stderr.strip()[-200:], entry_shape=list(out.shape),
-         entry_device=str(out.device))
+    emit("cli", lines=lines, entry_shape=list(out.shape), entry_device=str(out.device))
     patterns = {
         "burn": r"^\d+ steps in [\d.]+s → [\d.]+ TFLOP/s$",
         "hbm": r"^holding 1\.00 GiB on cuda:0$",
@@ -477,16 +517,193 @@ def phase_cli(dev) -> None:
     for mode, pattern in patterns.items():
         if not re.match(pattern, lines[mode].splitlines()[-1]):
             raise AssertionError(f"loadgen --mode {mode} printed {lines[mode]!r}")
-    if refused.returncode == 0 or "not ported yet" not in refused.stderr:
-        raise AssertionError(f"--mode parallel was not refused: rc={refused.returncode}")
     if out.shape != (32, 128) or out.device.type != "cuda" or not torch.isfinite(out.float()).all():
         raise AssertionError(f"entry(): {tuple(out.shape)} on {out.device}")
 
 
+def softmax_bound_ms(tq: int, tkv: int, dv: int) -> float:
+    """Least time for one running-softmax step: r, o, m and l each read
+    once and written once, f32, at the memory rate."""
+    return 2 * 4 * (tq * tkv + tq * dv + 2 * tq) / PEAK_HBM_BYTES_PER_S * 1e3
+
+
+def softmax_operands(dev, gen, tq, tkv, dv, first, scale):
+    """r, m, l, o for one step; ``first`` starts from m = -inf, l = 0."""
+    r = scale * torch.randn((tq, tkv), generator=gen, device=dev)
+    o = torch.randn((tq, dv), generator=gen, device=dev)
+    if first:
+        m = torch.full((tq,), -math.inf, device=dev)
+        l = torch.zeros((tq,), device=dev)
+    else:
+        m = scale * torch.randn((tq,), generator=gen, device=dev)
+        l = torch.rand((tq,), generator=gen, device=dev) + 0.5
+    return r, m, l, o
+
+
+def phase_online_softmax(dev, osm) -> dict:
+    """The running-softmax kernel against the plain version at every case;
+    then the times at the ring's shape. Returns its numbers for the
+    kernels line."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    main_err = None
+    for tq, tkv, dv, d, first, scale in SOFTMAX_CASES:
+        got = softmax_operands(dev, gen, tq, tkv, dv, first, scale)
+        want = [t.clone() for t in got]
+        osm.online_softmax_update_plain(*want, d)
+        before = osm.online_softmax_update_.launches
+        osm.online_softmax_update_(*got, d)
+        torch.cuda.synchronize()
+        launched = osm.online_softmax_update_.launches - before
+        errs = {name: (a - b).abs().max().item()
+                for name, a, b in zip(("p", "m", "l", "o"), got, want)}
+        close = all(torch.allclose(a, b, rtol=SOFTMAX_RTOL, atol=SOFTMAX_ATOL)
+                    and bool(torch.isfinite(a).all()) for a, b in zip(got, want))
+        m_equal = bool(torch.equal(got[1], want[1]))
+        emit("online_softmax", shape={"Tq": tq, "Tkv": tkv, "D": dv, "d": d},
+             first_step=first, score_scale=scale, launched=launched, m_equal=m_equal,
+             max_abs_err=errs, rtol=SOFTMAX_RTOL, atol=SOFTMAX_ATOL)
+        if launched != 1 or not (close and m_equal):
+            raise AssertionError(f"online_softmax {tq}x{tkv}x{dv}: {launched} launches, "
+                                 f"m_equal={m_equal}, errors {errs}")
+        if (tq, tkv, dv) == (RING_T, RING_T, RING_D):
+            main_err = max(errs.values())
+        del got, want
+    r, m, l, o = softmax_operands(dev, gen, RING_T, RING_T, RING_D, False, RING_D**0.5)
+    ms = time_in_turns({
+        "kernel": lambda: osm.online_softmax_update_(r, m, l, o, RING_D),
+        "plain": lambda: osm.online_softmax_update_plain(r, m, l, o, RING_D),
+    })
+    bound = softmax_bound_ms(RING_T, RING_T, RING_D)
+    emit("online_softmax_time", shape={"Tq": RING_T, "Tkv": RING_T, "D": RING_D},
+         ms=ms, bound_ms=bound, bound_by="bytes",
+         share_of_bound={name: bound / t for name, t in ms.items()})
+    del r, m, l, o
+    return {"max_abs_err": main_err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": "bytes",
+            # No one PyTorch call computes this step.
+            "library_ms": None}
+
+
+def reference_of(par, name: str, args):
+    return {"ring": par.reference_attention, "ulysses": par.reference_mha,
+            "pipeline": par.reference_pipeline, "moe": par.reference_moe,
+            "fsdp": par.reference_fsdp}[name](*args)
+
+
+def phase_parallel(dev, tm, sgd, osm, par) -> dict:
+    """The five programs that run on one card at --scale 1024, each held
+    against its reference; then the selftest, the dry run and the CLI.
+    Returns the launches by kernel of the programs' run."""
+    import torch.distributed as dist
+
+    from tpu_pod_exporter_torch.entry import dryrun_multichip
+
+    reset_counts(tm, sgd, osm)
+    ring_steps = 0
+    results: dict = {}
+    for name in PAR_TOL:
+        step, args, _feed = par.build_parallel_program(name, 1, scale=PAR_SCALE)
+        out = step(*args)
+        ref = reference_of(par, name, args)
+        if name == "fsdp":
+            (out, loss), (ref, ref_loss) = out, ref
+            loss_err = abs(loss.item() - ref_loss.item())
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and torch.allclose(
+            out, ref, rtol=PAR_TOL[name], atol=PAR_TOL[name])
+        ms = time_in_turns({name: lambda: step(*args)}, reps=5, calls=1)[name]
+        ring_steps += 7 if name == "ring" else 0  # the step, time_in_turns' 1 + 5
+        results[name] = {"shape": {a: list(t.shape) for a, t in zip(par.ARGS[name], args)},
+                         "max_abs_err": err, "tol": PAR_TOL[name], "step_ms": ms}
+        if name == "fsdp":
+            results[name]["loss_abs_err"] = loss_err
+            ok = ok and loss_err < FSDP_LOSS_ATOL
+        if not ok:
+            raise AssertionError(f"parallel {name} x{PAR_SCALE}: {results[name]}")
+        del step, args, out, ref
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn((RING_T, RING_D), generator=gen, device=dev) for _ in range(3))
+    fn, _shard = par.ring_attention_fn(par.make_1d_mesh(1, "seq"))
+    out, ref = fn(q, k, v), par.reference_attention(q, k, v)
+    ring_steps += 1
+    err = (out - ref).abs().max().item()
+    results["ring_apart"] = {"max_abs_err": err, "tol": PAR_TOL["ring"]}
+    if not (bool(torch.isfinite(out).all())
+            and torch.allclose(out, ref, rtol=PAR_TOL["ring"], atol=PAR_TOL["ring"])):
+        raise AssertionError(f"ring with q, k, v drawn apart: max_abs_err {err}")
+    del q, k, v, out, ref
+    by_kernel = {**tm.tanh_matmul.launches_by_kernel, "sgd": sgd.sgd_update_.launches,
+                 "online_softmax": osm.online_softmax_update_.launches}
+    if by_kernel["online_softmax"] != ring_steps:
+        raise AssertionError(f"parallel: {by_kernel['online_softmax']} online_softmax "
+                             f"launches for {ring_steps} ring steps")
+
+    # One ring step on one card, split by CUDA events: r = q @ k.T, the
+    # kernel, o += p @ v (the program's body, n = 1).
+    step, (q, k, v), _feed = par.build_parallel_program("ring", 1, scale=PAR_SCALE)
+    step(q, k, v)
+    o = torch.zeros_like(q)
+    m = torch.full((q.shape[0],), -math.inf, device=dev)
+    l = torch.zeros_like(m)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    events[0].record()
+    p = torch.mm(q, k.t())
+    events[1].record()
+    osm.online_softmax_update_(p, m, l, o, q.shape[1])
+    events[2].record()
+    o.addmm_(p, v)
+    events[3].record()
+    events[3].synchronize()
+    split = {part: events[i].elapsed_time(events[i + 1])
+             for i, part in enumerate(("qk_product", "online_softmax", "pv_product"))}
+    flops = 4.0 * q.shape[0] * k.shape[0] * q.shape[1]
+    del step, q, k, v, o, m, l, p
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("parallel", scale=PAR_SCALE, devices=1, programs=results,
+         ring_split_ms=split, ring_product_tflops=flops / (split["qk_product"]
+                                                            + split["pv_product"]) / 1e9,
+         launches_by_kernel=by_kernel, ring_steps=ring_steps)
+
+    selftest = subprocess.run(
+        [sys.executable, "-m", "tpu_pod_exporter_torch.loadgen.selftest", "--n", "1",
+         "--checks", "all"], capture_output=True, text=True, timeout=300, cwd=REPO)
+    report = json.loads(selftest.stdout.strip().splitlines()[-1]) if selftest.stdout else {}
+    emit("selftest", rc=selftest.returncode,
+         checks={k: {f: x for f, x in v.items() if f != "traceback"}
+                 for k, v in report.get("checks", {}).items()},
+         stderr=selftest.stderr[-1000:] if selftest.returncode else "")
+    if selftest.returncode != 0:
+        raise AssertionError(f"selftest --n 1 --checks all exited {selftest.returncode}")
+    dryrun = dryrun_multichip(1)
+    emit("dryrun_multichip", n_devices=1, report=dryrun)
+
+    lines = {name: run_cli("--mode", "parallel", "--program", name,
+                           "--scale", str(PAR_SCALE), "--seconds", "2")
+             for name in PAR_TOL}
+    refused = subprocess.run(
+        [sys.executable, "-m", "tpu_pod_exporter_torch.loadgen", "--mode", "parallel",
+         "--program", "multislice", "--scale", str(PAR_SCALE), "--seconds", "2"],
+        capture_output=True, text=True, timeout=180, cwd=REPO)
+    emit("parallel_cli", lines=lines, multislice_rc=refused.returncode,
+         multislice_stderr=refused.stderr.strip()[-200:])
+    for name, line in lines.items():
+        pattern = rf"^{name} x{PAR_SCALE} on 1 devices: \d+ steps in [\d.]+s → [\d.]+ steps/s$"
+        if not re.match(pattern, line.splitlines()[-1]):
+            raise AssertionError(f"loadgen --mode parallel --program {name} printed {line!r}")
+    if refused.returncode == 0 or "even device count" not in refused.stderr:
+        raise AssertionError(f"multislice on one card: rc={refused.returncode}")
+    return by_kernel
+
+
 def main() -> int:
     from tpu_pod_exporter_torch import hwcheck
+    from tpu_pod_exporter_torch.kernels import online_softmax as osm
     from tpu_pod_exporter_torch.kernels import sgd
     from tpu_pod_exporter_torch.kernels import tanh_matmul as tm
+    from tpu_pod_exporter_torch.loadgen import parallel as par
     from tpu_pod_exporter_torch.loadgen import sharded
     from tpu_pod_exporter_torch.loadgen import workload as wl
 
@@ -520,10 +737,16 @@ def main() -> int:
     train = phase_train(dev, tm, sgd, sharded)
     torch.cuda.empty_cache()
     phase_cli(dev)
+    records["online_softmax"] = phase_online_softmax(dev, osm)
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(dev, tm, sgd, osm, par)
 
-    # Launches on the main paths: the closed loop and the training run.
-    by_path = {kernel: {"closed_loop": closed_loop.get(kernel, 0), "train": train[kernel]}
-               for kernel in (*SOURCES, "sgd")}
+    # Launches on the main paths: the closed loop, the training run and the
+    # collective programs.
+    names = (*SOURCES, "sgd", "online_softmax")
+    by_path = {kernel: {"closed_loop": closed_loop.get(kernel, 0),
+                        "train": train.get(kernel, 0), "parallel": parallel[kernel]}
+               for kernel in names}
     kernels = [{
         "name": tm.ENTRIES[kernel],
         "route": "cuda",
@@ -534,8 +757,13 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_pod_exporter_torch/kernels/csrc/sgd_update.cu",
         "replaces": "tpu_pod_exporter/loadgen/sharded.py:103",
+    }, {
+        "name": "online_softmax_f32",
+        "route": "cuda",
+        "source": "tpu_pod_exporter_torch/kernels/csrc/online_softmax.cu",
+        "replaces": "tpu_pod_exporter/loadgen/parallel.py:88",
     }]
-    for record, kernel in zip(kernels, (*SOURCES, "sgd")):
+    for record, kernel in zip(kernels, names):
         record.update(launches=sum(by_path[kernel].values()),
                       launches_by_path=by_path[kernel], **records[kernel])
     print(json.dumps({"kernels": kernels}))

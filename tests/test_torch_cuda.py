@@ -2,7 +2,9 @@
 can address, wmma for the rest) against the plain version at ragged and
 misaligned shapes, which kernel each shape launched, the SGD update kernel
 against its plain version bit for bit, the gradient through the kernels,
-a training step on one card, the backend reading the allocator, and a
+a training step on one card, ring attention's running-softmax kernel
+against its plain version at its edge cases, the ring program on one card
+against plain attention, the backend reading the allocator, and a
 small closed loop. Every test carries the ``gpu``
 marker, needs a CUDA device and skips without one; on a machine with a card
 run
@@ -15,8 +17,10 @@ This file imports no JAX, so it runs where only torch is installed.
 import pytest
 import torch
 
+from tpu_pod_exporter_torch.kernels import online_softmax as osm
 from tpu_pod_exporter_torch.kernels import sgd
 from tpu_pod_exporter_torch.kernels import tanh_matmul as tm
+from tpu_pod_exporter_torch.loadgen import parallel
 from tpu_pod_exporter_torch.loadgen import sharded
 from tpu_pod_exporter_torch.loadgen import workload as wl
 
@@ -255,6 +259,84 @@ def test_sharded_step_descends_on_one_card(dev):
         dist.destroy_process_group()
     assert sgd.sgd_update_.launches == launches + 5
     assert all(b < a for a, b in zip(losses, losses[1:])), losses
+
+
+# The running-softmax kernel against its plain version: m is a max of the
+# same f32 quotients (true division by the same correctly rounded sqrt), so
+# it is equal; p and l differ by expf against torch.exp and the order of the
+# row sum, a few f32 ulps; o is scaled by the same corr.
+SOFTMAX_RTOL = 1e-5
+SOFTMAX_ATOL = 1e-30  # below any p that matters; p underflows near 1e-38
+
+
+def _softmax_case(dev, tq, tkv, dv, d, first, scale=1.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = scale * torch.randn((tq, tkv), generator=g, device=dev)
+    o = torch.randn((tq, dv), generator=g, device=dev)
+    if first:
+        m = torch.full((tq,), float("-inf"), device=dev)
+        l = torch.zeros((tq,), device=dev)
+    else:
+        m = torch.randn((tq,), generator=g, device=dev)
+        l = torch.rand((tq,), generator=g, device=dev) + 0.5
+    return r, m, l, o, d
+
+
+@pytest.mark.parametrize("tq,tkv,dv,d,first,scale", [
+    (64, 256, 64, 64, True, 1.0),       # the first step: m = -inf, l = 0
+    (64, 256, 64, 64, False, 1.0),      # a later step
+    (1, 4096, 8192, 8192, False, 1.0),  # Tq = 1
+    (33, 1, 16, 16, True, 1.0),         # Tkv = 1
+    (17, 1000, 48, 16, False, 1.0),     # Tkv not a multiple of the block
+    (40, 4097, 24, 4, True, 900.0),     # scores scaled 30x30, as the stability check
+    (8, 20000, 32, 64, False, 1.0),     # a row past 48 KiB of shared memory
+])
+def test_online_softmax_matches_plain(dev, tq, tkv, dv, d, first, scale):
+    args = _softmax_case(dev, tq, tkv, dv, d, first, scale)
+    want = [t.clone() for t in args[:4]]
+    osm.online_softmax_update_plain(*want, d)
+    before = osm.online_softmax_update_.launches
+    got = args[:4]
+    assert osm.online_softmax_update_(*got, d) is got[0]
+    torch.cuda.synchronize()
+    assert osm.online_softmax_update_.launches == before + 1
+    assert torch.equal(got[1], want[1])  # m
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=SOFTMAX_RTOL, atol=SOFTMAX_ATOL)
+
+
+def test_online_softmax_rejects_and_skips_empty(dev):
+    r, m, l, o, d = _softmax_case(dev, 4, 8, 8, 8, True)
+    before = osm.online_softmax_update_.launches
+    with pytest.raises(ValueError):
+        osm.online_softmax_update_(r.double(), m, l, o, d)
+    with pytest.raises(ValueError):
+        osm.online_softmax_update_(r, m.cpu(), l, o, d)
+    with pytest.raises(ValueError):
+        osm.online_softmax_update_(r.t(), m, l, o, d)
+    with pytest.raises(ValueError):
+        osm.online_softmax_update_(r.new_empty((4, osm.MAX_TKV + 1)), m, l, o, d)
+    empty = r[:0]
+    assert osm.online_softmax_update_(empty, m[:0], l[:0], o[:0], d) is empty
+    assert osm.online_softmax_update_.launches == before
+
+
+def test_ring_program_on_one_card_matches_plain_attention(dev):
+    import torch.distributed as dist
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((256, 64), generator=gen, device=dev) for _ in range(3))
+    try:
+        fn, shard = parallel.ring_attention_fn(parallel.make_1d_mesh(1, "seq"))
+        before = osm.online_softmax_update_.launches
+        out = fn(shard(q), shard(k), shard(v))
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    assert osm.online_softmax_update_.launches == before + 1
+    torch.testing.assert_close(out, parallel.reference_attention(q, k, v),
+                               rtol=2e-5, atol=2e-5)
 
 
 def test_backend_reads_the_allocator(dev):

@@ -74,6 +74,9 @@ def test_entry_modules_load_no_jax():
         "import tpu_pod_exporter_torch.kernels.sgd, tpu_pod_exporter_torch.entry\n"
         "import tpu_pod_exporter_torch.loadgen.sharded\n"
         "import tpu_pod_exporter_torch.loadgen.__main__\n"
+        "import tpu_pod_exporter_torch.kernels.online_softmax\n"
+        "import tpu_pod_exporter_torch.loadgen.parallel\n"
+        "import tpu_pod_exporter_torch.loadgen.selftest\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -81,6 +84,7 @@ def test_entry_modules_load_no_jax():
     assert proc.returncode == 0, proc.stderr
     added = json.loads(proc.stdout)
     assert "tpu_pod_exporter_torch.app" in added
+    assert "tpu_pod_exporter_torch.loadgen.selftest" in added
     assert [m for m in added if _forbidden(m)] == []
 
 

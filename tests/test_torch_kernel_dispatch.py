@@ -41,18 +41,22 @@ def test_every_kernel_has_an_entry_and_a_count():
 
 
 def test_sources_are_both_kernels():
-    # Both tanh_matmul kernels, and the SGD update built into the same library.
+    # Both tanh_matmul kernels, and the SGD update and ring attention's
+    # running softmax built into the same library.
     assert [p.name for p in tm.sources()] == [
-        "sgd_update.cu", "tanh_matmul.cu", "tanh_matmul_sm90.cu"]
+        "online_softmax.cu", "sgd_update.cu", "tanh_matmul.cu", "tanh_matmul_sm90.cu"]
 
 
 def test_every_c_entry_has_its_own_argtypes():
-    assert set(tm.ENTRIES.values()) | {"sgd_update_bf16"} == set(tm.SIGNATURES)
+    assert set(tm.ENTRIES.values()) | {"sgd_update_bf16", "online_softmax_f32"} \
+        == set(tm.SIGNATURES)
     assert len(tm.SIGNATURES["sgd_update_bf16"]) == 5  # p, g, n, lr, stream
+    assert len(tm.SIGNATURES["online_softmax_f32"]) == 9  # r, m, l, o, Tq, Tkv, D, d, stream
     assert all(len(tm.SIGNATURES[e]) == 7 for e in tm.ENTRIES.values())
 
 
-@pytest.mark.parametrize("name", ["tanh_matmul.cu", "tanh_matmul_sm90.cu", "sgd_update.cu"])
+@pytest.mark.parametrize("name", ["tanh_matmul.cu", "tanh_matmul_sm90.cu", "sgd_update.cu",
+                                  "online_softmax.cu"])
 def test_library_path_changes_with_either_source(monkeypatch, name):
     before = tm.library_path()
     read = pathlib.Path.read_bytes

@@ -16,6 +16,8 @@ The same numpy inputs go into both programs. Tolerances:
   step equal or one bf16 step apart.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -261,9 +263,16 @@ class TestCli:
         out = capsys.readouterr().out
         assert out.startswith(f"mesh {mesh} | ") and "| loss " in out
 
-    def test_parallel_is_refused(self, capsys):
-        assert cli(["--mode", "parallel", "--program", "moe"]) != 0
-        assert "not ported yet" in capsys.readouterr().err
+    @pytest.mark.parametrize("program,devices", [
+        ("ring", "1"),
+        ("fsdp", "2"),  # a gloo world of two ranks
+    ])
+    def test_parallel_on_cpu(self, capsys, program, devices):
+        assert cli(["--mode", "parallel", "--device", "cpu", "--program", program,
+                    "--devices", devices, "--seconds", "0.3"]) == 0
+        out = capsys.readouterr().out
+        assert re.fullmatch(rf"{program} x1 on {devices} devices: \d+ steps in [\d.]+s "
+                            r"→ [\d.]+ steps/s\n", out), out
 
     def test_program_names_are_the_jax_packages(self):
         from tpu_pod_exporter.loadgen.parallel import PARALLEL_PROGRAMS
@@ -271,7 +280,7 @@ class TestCli:
 
         assert ours == PARALLEL_PROGRAMS
 
-    @pytest.mark.parametrize("mode", ["burn", "hbm", "sharded"])
+    @pytest.mark.parametrize("mode", ["burn", "hbm", "sharded", "parallel"])
     def test_raises_without_cuda_unless_asked_for_cpu(self, monkeypatch, mode):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -23,8 +23,8 @@ Two hand kernels, chosen by shape before the launch (:func:`sm90_eligible`):
   rest (K or N not a multiple of 8, a misaligned ``h`` or ``w``, K = 0):
   128x128 tiles of wmma fragments, two cp.async stages, masked edges.
 
-Every source under ``csrc/`` (these two and ``sgd_update.cu``, see
-:mod:`.sgd`) is compiled by one ``nvcc`` call at first CUDA use into one
+Every source under ``csrc/`` (these two, ``sgd_update.cu``, see
+:mod:`.sgd`, and ``online_softmax.cu``, see :mod:`.online_softmax`) is compiled by one ``nvcc`` call at first CUDA use into one
 library in ``tpu_pod_exporter_torch/_build/`` (file name keyed by a hash of
 every file under ``csrc/`` and the flags) and bound through ``ctypes``.
 
@@ -81,6 +81,10 @@ SIGNATURES = {
     # p, g, n, lr, stream (kernels/sgd.py)
     "sgd_update_bf16": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                         ctypes.c_float, ctypes.c_void_p),
+    # r, m, l, o, Tq, Tkv, D, d, stream (kernels/online_softmax.py)
+    "online_softmax_f32": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p),
 }
 
 _lock = threading.Lock()

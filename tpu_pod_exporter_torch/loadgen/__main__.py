@@ -7,10 +7,13 @@ Examples:
     python -m tpu_pod_exporter_torch.loadgen --mode sharded --devices 1 --seconds 30
     python -m tpu_pod_exporter_torch.loadgen --mode sharded --devices 4 --device cpu \\
         --width 64 --depth 2 --batch 16 --seconds 5
+    python -m tpu_pod_exporter_torch.loadgen --mode parallel --program ring --scale 1024
+    python -m tpu_pod_exporter_torch.loadgen --mode parallel --program fsdp --devices 2 \\
+        --device cpu --seconds 2
 
-Runs on the CUDA card unless ``--device cpu`` is given. A sharded mesh of
-more than one device runs as a world of rank processes (``run_world``).
-``--mode parallel`` is not ported yet and exits non-zero.
+Runs on the CUDA card unless ``--device cpu`` is given. A sharded mesh or a
+parallel program of more than one device runs as a world of rank processes
+(``run_world``).
 """
 
 from __future__ import annotations
@@ -19,9 +22,7 @@ import argparse
 import sys
 import time
 
-# The JAX package's six collective programs (loadgen/parallel.py), kept here
-# so that --program takes the same names.
-PARALLEL_PROGRAMS = ("ring", "ulysses", "pipeline", "moe", "fsdp", "multislice")
+from tpu_pod_exporter_torch.loadgen.parallel import PARALLEL_PROGRAMS
 
 
 def main(argv=None) -> int:
@@ -46,15 +47,10 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=10, help="forward passes per step (burn)")
     p.add_argument("--gib", type=float, default=1.0, help="device memory to hold (hbm mode)")
     p.add_argument("--devices", type=int, default=0,
-                   help="mesh size (sharded); 0 = every card, or 1 on the CPU")
+                   help="mesh size (sharded, parallel); 0 = every card, or 1 on the CPU")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="the card (default), or the CPU when asked")
     args = p.parse_args(argv)
-
-    if args.mode == "parallel":
-        print(f"--mode parallel (--program {args.program}) is not ported yet "
-              "(ROADMAP §1 item 4)", file=sys.stderr)
-        return 2
 
     import torch
 
@@ -99,13 +95,39 @@ def main(argv=None) -> int:
         print(f"{steps} steps in {dt:.1f}s → {flops / dt / 1e12:.2f} TFLOP/s")
         return 0
 
-    # sharded
+    import torch.distributed as dist
+
     from tpu_pod_exporter_torch.loadgen import sharded
 
     n = args.devices or (torch.cuda.device_count() if dev.type == "cuda" else 1)
-    if n == 1:
-        import torch.distributed as dist
+    if args.mode == "parallel":
+        from tpu_pod_exporter_torch.loadgen import parallel
 
+        if n == 1:
+            try:
+                report = parallel.run_loop(args.program, 1, args.scale, args.seconds,
+                                           device=dev)
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+        else:
+            report = sharded.run_world(
+                n, dev.type,
+                ["--program", args.program, "--scale", str(args.scale),
+                 "--seconds", str(args.seconds)],
+                timeout=args.seconds + 120, module=parallel.MODULE,
+            )[0]
+        if not report["finite"]:
+            print(f"non-finite probe ({report['probe']}) after {report['steps']} steps",
+                  file=sys.stderr)
+            return 1
+        dt = report["seconds"]
+        print(f"{args.program} x{args.scale} on {n} devices: "
+              f"{report['steps']} steps in {dt:.1f}s → {report['steps'] / dt:.1f} steps/s")
+        return 0
+
+    # sharded
+    if n == 1:
         mesh = sharded.make_mesh(1, device=dev)
         try:
             # One step first (it builds the kernels), then the timed ones.

@@ -103,10 +103,20 @@ def make_mesh(n_devices: int, dp: int | None = None, tp: int | None = None,
     socket)."""
     dp, tp = mesh_shape(n_devices, dp, tp)
     platform = _platform(device)
+    join_world(n_devices, platform)
+    return DeviceMesh(platform, torch.arange(n_devices).reshape(dp, tp),
+                      mesh_dim_names=("data", "model"))
+
+
+def join_world(n_devices: int, platform: str) -> None:
+    """Check that this process is a rank of a world of n ranks on
+    ``platform`` ("cuda" or "cpu"), starting a world of one in this process
+    (an in-memory store, no socket) when there is none and n = 1; on CUDA,
+    make card r the current device of rank r."""
     devices = pick_devices(n_devices, platform)
     if not dist.is_initialized():
         if n_devices != 1:
-            raise RuntimeError(f"make_mesh({n_devices}) needs a torch.distributed "
+            raise RuntimeError(f"a mesh of {n_devices} needs a torch.distributed "
                                f"world of {n_devices} ranks (run_world starts one)")
         dist.init_process_group(BACKENDS[platform], store=dist.HashStore(),
                                 rank=0, world_size=1)
@@ -114,8 +124,6 @@ def make_mesh(n_devices: int, dp: int | None = None, tp: int | None = None,
         raise ValueError(f"world has {dist.get_world_size()} ranks, mesh needs {n_devices}")
     if platform == "cuda":
         torch.cuda.set_device(devices[dist.get_rank()])
-    return DeviceMesh(platform, torch.arange(n_devices).reshape(dp, tp),
-                      mesh_dim_names=("data", "model"))
 
 
 def padded(batch: int, width: int, dp: int, tp: int) -> tuple[int, int]:
@@ -299,10 +307,10 @@ def train(mesh: DeviceMesh, width: int, depth: int, batch: int, steps: int = 1,
 
 def run_dryrun(n_devices: int, steps: int = 1, device=None) -> float:
     """Run the sharded step on an n-device mesh; returns the final loss.
-    A world of one runs in this process, a larger one through
-    :func:`run_world`."""
-    if n_devices == 1:
-        mesh = make_mesh(1, device=device)
+    A world of one, or the world of n this process is a rank of, runs in
+    this process; otherwise a world of n starts through :func:`run_world`."""
+    if n_devices == 1 or (dist.is_initialized() and dist.get_world_size() == n_devices):
+        mesh = make_mesh(n_devices, device=device)
         return train(mesh, width=128, depth=4, batch=32, steps=steps)["losses"][-1]
     reports = run_world(n_devices, _platform(device), ["--steps", str(steps)])
     return reports[0]["losses"][-1]
@@ -319,9 +327,13 @@ def _read(f) -> str:
     return f.read().decode(errors="replace")
 
 
-def run_world(n: int, device: str, argv: list[str], timeout: float = 60.0) -> list[dict]:
-    """Start n ranks of :func:`main` as child processes on this host, each
-    given ``argv``, and return their reports in rank order.
+def run_world(n: int, device: str, argv: list[str], timeout: float = 60.0,
+              module: str = "tpu_pod_exporter_torch.loadgen.sharded") -> list[dict]:
+    """Start n ranks of ``module``'s ``main`` (by default this module's
+    :func:`main`) as child processes on this host, each given ``argv``
+    after ``--rank``, ``--world-size``, ``--init-method`` and ``--device``,
+    and return their reports (the last line of each rank's output, JSON) in
+    rank order.
 
     ``device`` is "cpu" (gloo) or "cuda" (NCCL, rank r on card r). Raises
     RuntimeError with the children's stderr tails when one fails or when
@@ -342,7 +354,7 @@ def run_world(n: int, device: str, argv: list[str], timeout: float = 60.0) -> li
     try:
         for rank in range(n):
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "tpu_pod_exporter_torch.loadgen.sharded",
+                [sys.executable, "-m", module,
                  "--rank", str(rank), "--world-size", str(n), "--init-method", init,
                  "--device", device, *argv],
                 cwd=repo, env=env, stdout=outs[rank], stderr=errs[rank]))
