@@ -53,7 +53,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                (``--n 1 --checks all``) as a subprocess, ``entry.
                dryrun_multichip(1)``, and the CLI's ``--mode parallel`` for
                every program (multislice refused: one card is not an even
-               count).
+               count);
+12. nvml      — the GPU node path: the ctypes NVML binding against torch and
+               nvidia-smi (count, UUID, memory total, and the minor number
+               against the /dev/nvidia<N> this process holds); hwcheck's
+               live exporter on the NVML backend with --process-metrics,
+               --legacy-metrics and checkpoint attribution through a UID map
+               (a synthetic kubelet checkpoint gives this card to one pod),
+               scraped while the 16 GiB fill and the full-size burn load the
+               card: the card's memory rises by the fill and falls, its
+               utilization rises, the process table sums to the fill, this
+               process holds the card's node, the pod's memory rises by the
+               fill, the reference's {pid, pod} series is there, and every
+               launch is on the wgmma kernel; ``--backend auto`` picks NVML;
+               then NvmlBackend.sample() times over 200 calls idle and under
+               the burn, and NVML's used beside the allocator's count.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -65,6 +79,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -148,6 +163,10 @@ FSDP_LOSS_ATOL = 1e-5
 # row's softmax one-hot at d = 8192; one more ring step at the same shape
 # draws them apart (scores of unit spread), at the ring's tolerance.
 REPO = Path(__file__).resolve().parent
+# The NVML phase: NvmlBackend.sample() timed over this many calls, and the
+# pod a synthetic kubelet checkpoint gives the card to.
+NVML_SAMPLES = 200
+SMOKE_POD, SMOKE_POD_UID = "burn-0", "8a1d3f50-0c4e-4b6e-9f21-5d7c2b9e4a10"
 
 
 def emit(phase: str, **fields) -> None:
@@ -698,6 +717,141 @@ def phase_parallel(dev, tm, sgd, osm, par) -> dict:
     return by_kernel
 
 
+def held_card_nodes() -> set:
+    """The /dev/nvidia<N> card nodes among this process's open files."""
+    nodes = set()
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            target = os.readlink(f"/proc/self/fd/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia[0-9]+", target):
+            nodes.add(target)
+    return nodes
+
+
+def sample_ms(backend, calls: int = NVML_SAMPLES) -> dict:
+    """Median and p99 ms of ``backend.sample()`` over ``calls`` calls."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        backend.sample()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return {"median": statistics.median(times), "p99": times[math.ceil(0.99 * calls) - 1],
+            "calls": calls}
+
+
+def phase_nvml(dev, tm, hwcheck, uuid: str) -> dict:
+    """The GPU node path on the card. Returns the launches by kernel of its
+    closed loop."""
+    import tempfile
+
+    from tpu_pod_exporter_torch.app import build_backend
+    from tpu_pod_exporter_torch.backend.nvml import NvmlBackend
+    from tpu_pod_exporter_torch.backend.nvml_ctypes import CtypesNvmlDriver
+    from tpu_pod_exporter_torch.backend.torchdev import _nvml_uuid
+    from tpu_pod_exporter_torch.config import ExporterConfig
+
+    driver = CtypesNvmlDriver()
+    driver.nvmlInit()
+    count = driver.nvmlDeviceGetCount()
+    torch_uuid = _nvml_uuid(torch.cuda.get_device_properties(dev).uuid)
+    handles = {driver.nvmlDeviceGetUUID(h): h
+               for h in map(driver.nvmlDeviceGetHandleByIndex, range(count))}
+    handle = handles.get(torch_uuid)
+    minor = None if handle is None else driver.nvmlDeviceGetMinorNumber(handle)
+    total_mib = None if handle is None else driver.nvmlDeviceGetMemoryInfo(handle)["total"] / 2**20
+    driver.nvmlShutdown()
+    smi_total = nvidia_smi("memory.total")
+    held = held_card_nodes()
+    emit("nvml_binding", count=count, uuid=torch_uuid, nvidia_smi_uuid=uuid,
+         minor=minor, held_nodes=sorted(held), memory_total_mib=total_mib,
+         nvidia_smi_memory_total=smi_total, process_symbol=driver.process_symbol)
+    if not (count >= 1 and handle is not None and torch_uuid == uuid):
+        raise AssertionError(f"NVML: {count} devices, none with torch's UUID {torch_uuid} "
+                             f"(nvidia-smi {uuid})")
+    if int(smi_total.split()[0]) != int(total_mib):
+        raise AssertionError(f"NVML total {total_mib} MiB, nvidia-smi {smi_total}")
+    node = f"/dev/nvidia{minor}"
+    if held != {node}:
+        raise AssertionError(f"minor {minor}, but this process holds {sorted(held)}")
+
+    reset_counts(tm)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, uids = Path(tmp, "kubelet_internal_checkpoint"), Path(tmp, "uids.json")
+        ckpt.write_text(json.dumps({"Data": {"PodDeviceEntries": [
+            {"PodUID": SMOKE_POD_UID, "ContainerName": "burn",
+             "ResourceName": "nvidia.com/gpu", "DeviceIDs": {"-1": [torch_uuid]}}]}}))
+        uids.write_text(json.dumps({SMOKE_POD_UID: {"name": SMOKE_POD, "namespace": "smoke"}}))
+        stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
+                                     batch=BATCH, iters=ITERS, device=dev)
+        report = hwcheck.run_check(
+            backend="nvml", idle_s=2.0, load_s=8.0, stimulus=stim,
+            exporter_args={"process_metrics": True, "legacy_metrics": True,
+                           "attribution": "checkpoint", "checkpoint_path": str(ckpt),
+                           "uid_map_file": str(uids)})
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    emit("nvml_closed_loop", report=report, pid=os.getpid(), launches_by_kernel=by_kernel,
+         burn_steps=stim.steps)
+    idle, load = report["phases"]["idle"], report["phases"]["load"]
+    checks = report["checks"]
+    if not (report["ok"] and report["family"] == "gpu" and checks["hbm_rises_under_load"]
+            and checks["hbm_falls_after_release"] and checks["duty_cycle_responds"]):
+        raise AssertionError(f"nvml closed loop failed: {checks}")
+    rise = load["hbm_used_bytes"] - idle["hbm_used_bytes"]
+    if rise < FILL_BYTES:
+        raise AssertionError(f"gpu_hbm_used_bytes rose {rise} B, less than the fill")
+    if sum(load["process_memory_bytes"].values()) < FILL_BYTES:
+        raise AssertionError(f"process rows {load['process_memory_bytes']} sum under the fill")
+    if str(os.getpid()) not in load["holder_pids"]:
+        raise AssertionError(f"pid {os.getpid()} not among holders {load['holder_pids']}")
+    pod_rise = (load["pod_memory_bytes"].get(SMOKE_POD, 0.0)
+                - idle["pod_memory_bytes"].get(SMOKE_POD, 0.0))
+    if pod_rise < FILL_BYTES:
+        raise AssertionError(f"gpu_pod_memory_used_bytes{{pod={SMOKE_POD}}} rose {pod_rise} B")
+    if not any(key.endswith("/" + SMOKE_POD) for key in load["legacy_pod_memory_bytes"]):
+        raise AssertionError(f"no pod_gpu_memory_usage for {SMOKE_POD}: "
+                             f"{load['legacy_pod_memory_bytes']}")
+    if tm.tanh_matmul.launches <= 0:
+        raise AssertionError("no tanh_matmul launch during the nvml load phase")
+    check_all_wgmma(tm, "nvml closed loop", tm.tanh_matmul.launches)
+
+    auto = build_backend(ExporterConfig(backend="auto"))
+    auto_chips = auto.sample().chips if auto.name == "nvml" else ()
+    auto.close()
+    if len(auto_chips) < 1:
+        raise AssertionError(f"--backend auto built {auto.name} with {len(auto_chips)} chips")
+
+    backend = NvmlBackend()
+    idle_sample = backend.sample().chips
+    idle_ms = sample_ms(backend)
+    stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
+                                 batch=BATCH, iters=ITERS, device=dev)
+    stim.start()
+    try:
+        time.sleep(2.0)
+        burn_ms = sample_ms(backend)
+        (chip,) = [c for c in backend.sample().chips if c.info.device_ids[0] == torch_uuid]
+        allocated, reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    finally:
+        stim.stop()
+        backend.close()
+    (idle_chip,) = [c for c in idle_sample if c.info.device_ids[0] == torch_uuid]
+    emit("nvml_numbers", sample_ms_idle=idle_ms, sample_ms_burn=burn_ms,
+         poll_phase_last_ms={phase: report["phases"][phase]["poll_phase_last_ms"]
+                             for phase in ("idle", "load")},
+         poll_phase_mean_ms=report["phases"]["release"]["poll_phase_mean_ms"],
+         nvml_used_bytes=chip.hbm_used_bytes, allocator_allocated_bytes=allocated,
+         allocator_reserved_bytes=reserved,
+         nvml_minus_reserved_bytes=chip.hbm_used_bytes - reserved,
+         utilization_idle=idle_chip.tensorcore_duty_cycle_percent,
+         utilization_burn=chip.tensorcore_duty_cycle_percent,
+         process_rows_burn={str(p.pid): p.used_bytes for p in chip.processes},
+         auto=auto.name, auto_chips=len(auto_chips), device_path=chip.info.device_path)
+    return by_kernel
+
+
 def main() -> int:
     from tpu_pod_exporter_torch import hwcheck
     from tpu_pod_exporter_torch.kernels import online_softmax as osm
@@ -740,12 +894,15 @@ def main() -> int:
     records["online_softmax"] = phase_online_softmax(dev, osm)
     torch.cuda.empty_cache()
     parallel = phase_parallel(dev, tm, sgd, osm, par)
+    torch.cuda.empty_cache()
+    nvml = phase_nvml(dev, tm, hwcheck, uuid)
 
-    # Launches on the main paths: the closed loop, the training run and the
-    # collective programs.
+    # Launches on the main paths: the closed loop, the training run, the
+    # collective programs and the NVML closed loop.
     names = (*SOURCES, "sgd", "online_softmax")
     by_path = {kernel: {"closed_loop": closed_loop.get(kernel, 0),
-                        "train": train.get(kernel, 0), "parallel": parallel[kernel]}
+                        "train": train.get(kernel, 0), "parallel": parallel[kernel],
+                        "nvml": nvml.get(kernel, 0)}
                for kernel in names}
     kernels = [{
         "name": tm.ENTRIES[kernel],

@@ -4,8 +4,9 @@ misaligned shapes, which kernel each shape launched, the SGD update kernel
 against its plain version bit for bit, the gradient through the kernels,
 a training step on one card, ring attention's running-softmax kernel
 against its plain version at its edge cases, the ring program on one card
-against plain attention, the backend reading the allocator, and a
-small closed loop. Every test carries the ``gpu``
+against plain attention, the backend reading the allocator, a small
+closed loop, and the NVML binding against torch, the card's memory and
+this process's device node. Every test carries the ``gpu``
 marker, needs a CUDA device and skips without one; on a machine with a card
 run
 
@@ -363,3 +364,76 @@ def test_small_closed_loop(dev):
     assert report["ok"] is True, report
     assert report["family"] == "gpu"
     assert tm.tanh_matmul.launches > before
+
+
+def _nvml_card(dev):
+    """(ctypes driver, handle) of the card torch calls ``dev``, by UUID."""
+    from tpu_pod_exporter_torch.backend.nvml_ctypes import CtypesNvmlDriver
+    from tpu_pod_exporter_torch.backend.torchdev import _nvml_uuid
+
+    driver = CtypesNvmlDriver()
+    driver.nvmlInit()
+    uuid = _nvml_uuid(torch.cuda.get_device_properties(dev).uuid)
+    handles = [driver.nvmlDeviceGetHandleByIndex(i)
+               for i in range(driver.nvmlDeviceGetCount())]
+    (handle,) = [h for h in handles if driver.nvmlDeviceGetUUID(h) == uuid]
+    return driver, handle
+
+
+def test_nvml_binding_agrees_with_torch(dev):
+    driver, handle = _nvml_card(dev)
+    try:
+        assert driver.nvmlDeviceGetName(handle) == torch.cuda.get_device_name(dev)
+        total = driver.nvmlDeviceGetMemoryInfo(handle)["total"]
+        assert abs(total - torch.cuda.mem_get_info(dev)[1]) <= 1 << 30
+        assert 0 <= driver.nvmlDeviceGetUtilizationRates(handle)["gpu"] <= 100
+    finally:
+        driver.nvmlShutdown()
+
+
+def test_nvml_sees_a_gib_allocation_and_its_release(dev):
+    driver, handle = _nvml_card(dev)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(dev)
+        before = driver.nvmlDeviceGetMemoryInfo(handle)["used"]
+        held = torch.ones(1 << 30, dtype=torch.uint8, device=dev)
+        torch.cuda.synchronize(dev)
+        during = driver.nvmlDeviceGetMemoryInfo(handle)["used"]
+        rows = driver.nvmlDeviceGetComputeRunningProcesses(handle)
+        del held
+        torch.cuda.empty_cache()
+        after = driver.nvmlDeviceGetMemoryInfo(handle)["used"]
+    finally:
+        driver.nvmlShutdown()
+    assert during - before >= 1 << 30
+    assert after < during
+    assert sum(r["usedGpuMemory"] or 0 for r in rows) >= 1 << 30
+
+
+def test_this_process_holds_the_minor_node(dev):
+    import os
+
+    from tpu_pod_exporter_torch.app import build_backend
+    from tpu_pod_exporter_torch.config import ExporterConfig
+    from tpu_pod_exporter_torch.procscan import GPU_DEVICE_PREFIXES, ProcScanner
+
+    driver, handle = _nvml_card(dev)
+    try:
+        node = f"/dev/nvidia{driver.nvmlDeviceGetMinorNumber(handle)}"
+        uuid = driver.nvmlDeviceGetUUID(handle)
+    finally:
+        driver.nvmlShutdown()
+    torch.ones(1, device=dev)  # the context holds the node from here on
+    links = {os.readlink(f"/proc/self/fd/{fd}") for fd in os.listdir("/proc/self/fd")
+             if os.path.islink(f"/proc/self/fd/{fd}")}
+    assert node in links
+    holders = ProcScanner(device_prefixes=GPU_DEVICE_PREFIXES).scan()
+    assert (os.getpid(), node) in {(h.pid, h.device_path) for h in holders}
+    backend = build_backend(ExporterConfig(backend="auto"))
+    try:
+        assert backend.name == "nvml"
+        chips = {c.info.device_ids[0]: c for c in backend.sample().chips}
+        assert chips[uuid].info.device_path == node
+    finally:
+        backend.close()

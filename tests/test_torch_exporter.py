@@ -4,7 +4,8 @@ One fake-backend config goes through both packages' ``ExporterApp`` and is
 scraped over HTTP: the /metrics bodies must have the same lines in the same
 order, with equal values outside the timing and process self-metrics. Then
 the port's hwcheck orchestration (mirrors tests/test_hwcheck.py), and the
-backends, attribution sources and flags the port refuses.
+backend, attribution and flag selection: what builds, and what the port
+still refuses.
 """
 
 import json
@@ -158,10 +159,23 @@ class TestHwcheckFake:
 class TestRefusals:
     @pytest.mark.parametrize("backend", ["auto", "torch"])
     def test_card_backends_without_cuda_raise(self, backend, monkeypatch):
+        """torch raises without CUDA; auto never builds torch: with no
+        /dev/nvidia<minor> node it serves a 0-chip surface."""
+        from tpu_pod_exporter_torch.backend import discovery
+
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        with pytest.raises(BackendError, match="no CUDA device"):
-            tapp.ExporterApp(ExporterConfig(port=0, backend=backend,
-                                            attribution="none"))
+        monkeypatch.setattr(discovery, "local_chip_count", lambda root="/": 0)
+        cfg = ExporterConfig(port=0, backend=backend, attribution="none")
+        if backend == "torch":
+            with pytest.raises(BackendError, match="no CUDA device"):
+                tapp.ExporterApp(cfg)
+            return
+        app = tapp.ExporterApp(cfg)
+        try:
+            assert app.backend.name == "fake"
+            assert app.backend.sample().chips == ()
+        finally:
+            app.stop()
 
     def test_cli_torch_backend_without_cuda_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -171,9 +185,21 @@ class TestRefusals:
 
     @pytest.mark.parametrize("backend", ["jax", "libtpu", "nvml", "recorded"])
     def test_unported_backends_raise(self, backend):
-        with pytest.raises(ValueError, match=f"{backend}.*not yet ported"):
-            tapp.ExporterApp(ExporterConfig(port=0, backend=backend,
-                                            attribution="none"))
+        """jax and libtpu are still refused; nvml and recorded build."""
+        if backend in tapp.UNPORTED_BACKENDS:
+            with pytest.raises(ValueError, match=f"{backend}.*not yet ported"):
+                tapp.ExporterApp(ExporterConfig(port=0, backend=backend,
+                                                attribution="none"))
+            return
+        source = {"nvml": {"nvml_sim_gpus": 2},
+                  "recorded": {"recording_path": "tests/fixtures/gpu-recorded.jsonl"}}
+        app = tapp.ExporterApp(ExporterConfig(port=0, backend=backend, attribution="none",
+                                              **source[backend]))
+        try:
+            assert (app.backend.name, app.backend.family) == (backend, "gpu")
+            assert app.resource_name == "nvidia.com/gpu"
+        finally:
+            app.stop()
 
     def test_unknown_backend_raises(self):
         with pytest.raises(ValueError, match="unknown backend"):
@@ -186,25 +212,56 @@ class TestRefusals:
         ("state_dir", "state", "--state-dir"),
         ("egress_url", "http://127.0.0.1:9/write", "--egress-url"),
     ])
-    def test_unported_flags_raise(self, field, value, flag):
+    def test_unported_flags_raise(self, field, value, flag, tmp_path, monkeypatch):
+        """--chaos-spec, --state-dir and --egress-url are still refused;
+        --record-to and --process-metrics build their layer."""
+        monkeypatch.chdir(tmp_path)
         cfg = ExporterConfig(port=0, backend="fake", attribution="none",
                              **{field: value})
-        with pytest.raises(ValueError, match=flag):
-            tapp.ExporterApp(cfg)
+        if flag not in ("--record-to", "--process-metrics"):
+            with pytest.raises(ValueError, match=flag):
+                tapp.ExporterApp(cfg)
+            return
+        app = tapp.ExporterApp(cfg)
+        try:
+            if flag == "--record-to":
+                assert app.backend.name == "recording(fake)"
+            else:
+                assert app.process_scanner is not None
+        finally:
+            app.stop()
+        if flag == "--record-to":
+            assert (tmp_path / value).exists()
 
     @pytest.mark.parametrize("attribution", ["podresources", "checkpoint"])
     def test_unported_attribution_raises(self, attribution):
+        """Both kubelet sources now build (they connect or read lazily)."""
         cfg = ExporterConfig(port=0, backend="fake", attribution=attribution)
-        with pytest.raises(ValueError, match=f"{attribution}.*not yet ported"):
-            tapp.ExporterApp(cfg)
+        app = tapp.ExporterApp(cfg)
+        try:
+            assert app.attribution.name == attribution
+        finally:
+            app.stop()
+
+    @staticmethod
+    def _auto_attribution(tmp_path, *found: str) -> str:
+        sources = {"podresources": tmp_path / "kubelet.sock",
+                   "checkpoint": tmp_path / "checkpoint"}
+        for name in found:
+            sources[name].write_text("")
+        provider = tapp.build_attribution(ExporterConfig(
+            attribution="auto", podresources_socket=str(sources["podresources"]),
+            checkpoint_path=str(sources["checkpoint"])))
+        provider.close()
+        return provider.name
 
     def test_auto_attribution_refuses_a_found_kubelet_source(self, tmp_path):
-        sock = tmp_path / "kubelet.sock"
-        sock.write_text("")
-        cfg = ExporterConfig(attribution="auto", podresources_socket=str(sock),
-                             checkpoint_path=str(tmp_path / "absent"))
-        with pytest.raises(ValueError, match="--attribution none"):
-            tapp.build_attribution(cfg)
+        """auto picks the kubelet source it finds, the socket first."""
+        assert self._auto_attribution(tmp_path, "podresources", "checkpoint") == (
+            "podresources")
+
+    def test_auto_attribution_falls_back_to_the_checkpoint(self, tmp_path):
+        assert self._auto_attribution(tmp_path, "checkpoint") == "checkpoint"
 
     def test_auto_attribution_without_a_source_is_disabled(self, tmp_path):
         cfg = ExporterConfig(attribution="auto",

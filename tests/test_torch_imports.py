@@ -22,6 +22,9 @@ REFERENCE = REPO / "tpu_pod_exporter"
 # Copied modules whose text equals the JAX package's after the rename.
 VERBATIM = (
     "__main__.py", "attribution/__init__.py", "attribution/fake.py",
+    "attribution/checkpoint.py", "attribution/podresources.py",
+    "attribution/proto/__init__.py", "attribution/proto/podresources_pb2.py",
+    "attribution/uidmap.py",
     "backend/__init__.py", "backend/fake.py", "collector.py", "history.py",
     "metrics/__init__.py", "metrics/parse.py", "metrics/schema.py",
     "supervisor.py", "topology.py", "utils.py", "version.py",
@@ -29,7 +32,16 @@ VERBATIM = (
 # Copied modules with a few lines changed beyond the rename:
 # (reference lines replaced, port lines in their place).
 EDITED = {
-    "config.py": (1, 1),           # the --backend choices comment
+    "config.py": (2, 2),           # the --backend choices, the NVML binding comments
+    # The ctypes driver is the default; the device node is named by minor;
+    # IRQ_ISSUE and FUNCTION_NOT_FOUND carry nvml.h's codes.
+    "backend/nvml.py": (4, 21),
+    # /dev/nvidia<minor> nodes only, sorted by minor; no native scan.
+    "backend/discovery.py": (57, 26),
+    # Its own _link_sort_key in place of the import from backend/libtpu.
+    "backend/recorded.py": (3, 9),
+    # No native /proc walk; GPU prefixes match /dev/nvidia<minor> only.
+    "procscan.py": (79, 18),
     "metrics/registry.py": (1, 1),  # comment: no history reference
     "pressure.py": (1, 1),          # docstring: no history reference
     "trace.py": (1, 1),             # docstring: no history reference
@@ -77,6 +89,11 @@ def test_entry_modules_load_no_jax():
         "import tpu_pod_exporter_torch.kernels.online_softmax\n"
         "import tpu_pod_exporter_torch.loadgen.parallel\n"
         "import tpu_pod_exporter_torch.loadgen.selftest\n"
+        "import tpu_pod_exporter_torch.backend.nvml\n"
+        "import tpu_pod_exporter_torch.backend.nvml_ctypes\n"
+        "import tpu_pod_exporter_torch.backend.discovery\n"
+        "import tpu_pod_exporter_torch.backend.recorded\n"
+        "import tpu_pod_exporter_torch.procscan\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -85,7 +102,12 @@ def test_entry_modules_load_no_jax():
     added = json.loads(proc.stdout)
     assert "tpu_pod_exporter_torch.app" in added
     assert "tpu_pod_exporter_torch.loadgen.selftest" in added
+    assert "tpu_pod_exporter_torch.backend.nvml_ctypes" in added
     assert [m for m in added if _forbidden(m)] == []
+    # The card's path needs neither gRPC nor protobuf nor pynvml: the
+    # kubelet podresources client loads them only when it is selected.
+    assert [m for m in added
+            if m.split(".")[0] in ("grpc", "pynvml") or m.startswith("google.protobuf")] == []
 
 
 def _diff_counts(rel: str) -> tuple[int, int]:

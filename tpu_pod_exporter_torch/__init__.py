@@ -9,6 +9,11 @@ same relative path:
   TMA (``kernels/csrc/tanh_matmul_sm90.cu``) wherever TMA can address the
   operands, wmma (``kernels/csrc/tanh_matmul.cu``) elsewhere;
 - ``loadgen/workload.py`` — the synthetic load (matmul chain, HBM fill);
+- ``backend/nvml.py`` over ``backend/nvml_ctypes.py`` — every card's
+  memory, utilization and process table from the driver's NVML library,
+  with ``backend/discovery.py`` (``/dev/nvidia<minor>``), ``procscan.py``
+  (which process holds which card) and the kubelet attribution sources
+  that join cards to pods;
 - ``backend/torchdev.py`` — the in-process device backend, reading the
   CUDA caching allocator;
 - ``hwcheck.py`` — the closed-loop check: a live exporter scraped over
@@ -18,7 +23,7 @@ same relative path:
   holds no import of it.
 
 Entry points run on the card; the CPU is used only where a caller asks for
-it (``device="cpu"``, ``--backend fake``).
+it (``device="cpu"``, ``--backend fake``, the NVML sim flags).
 """
 
 from tpu_pod_exporter_torch.version import __version__

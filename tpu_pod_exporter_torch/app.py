@@ -29,60 +29,174 @@ from tpu_pod_exporter_torch.topology import detect_host_topology
 log = logging.getLogger("tpu_pod_exporter_torch.app")
 
 
-# Backends and attribution sources whose modules this package does not
-# carry yet: selecting one fails at construction rather than being ignored.
-UNPORTED_BACKENDS = ("jax", "libtpu", "nvml", "recorded")
-UNPORTED_ATTRIBUTION = ("podresources", "checkpoint")
+# Backends whose modules this package does not carry yet: selecting one
+# fails at construction rather than being ignored.
+UNPORTED_BACKENDS = ("jax", "libtpu")
 
 
 def build_backend(cfg: ExporterConfig) -> DeviceBackend:
     choice = cfg.backend
     if choice == "auto":
-        # The in-process CUDA backend, which raises BackendError when no
-        # CUDA device is visible: there is no 0-chip degrade until NVML
-        # discovery is ported.
-        choice = "torch"
+        # Production preference on a GPU node: NVML, which reads every
+        # process's device memory without opening the card. The torch
+        # backend is never auto-selected: it reads only its own process's
+        # allocator.
+        from tpu_pod_exporter_torch.backend.discovery import local_chip_count
+
+        if local_chip_count() > 0:
+            try:
+                return _build_named_backend("nvml", cfg)
+            except Exception as e:  # noqa: BLE001
+                # Auto-detection must degrade, not crash-loop the DaemonSet:
+                # a monitoring agent that dies on init monitors nothing.
+                log.error("auto-selected nvml backend unavailable (%s); "
+                          "serving 0-chip surface", e)
+                return FakeBackend(chips=0)
+        log.info("no local GPU devices found; using 0-chip fake backend")
+        return FakeBackend(chips=0)
+    # Explicit selection fails fast — a typo'd flag should be loud.
+    return _build_named_backend(choice, cfg)
+
+
+def _maybe_record(backend: DeviceBackend, cfg: ExporterConfig) -> DeviceBackend:
+    if cfg.record_to:
+        from tpu_pod_exporter_torch.backend.recorded import RecordingBackend
+
+        return RecordingBackend(backend, cfg.record_to)
+    return backend
+
+
+def _build_named_backend(choice: str, cfg: ExporterConfig) -> DeviceBackend:
+    if choice == "recorded":
+        from tpu_pod_exporter_torch.backend.recorded import RecordedBackend
+
+        return RecordedBackend(cfg.recording_path)
+    if choice == "fake":
+        return FakeBackend(chips=cfg.fake_chips)
     if choice == "torch":
         from tpu_pod_exporter_torch.backend.torchdev import TorchCudaBackend
 
         return TorchCudaBackend()
-    if choice == "fake":
-        return FakeBackend(chips=cfg.fake_chips)
+    if choice == "nvml":
+        from tpu_pod_exporter_torch.backend.nvml import (
+            NvmlBackend,
+            SimulatedNvmlDriver,
+            sim_driver_from_spec,
+        )
+
+        driver = None
+        if cfg.nvml_sim_spec:
+            import json
+
+            with open(cfg.nvml_sim_spec, encoding="utf-8") as f:
+                driver = sim_driver_from_spec(json.load(f))
+        elif cfg.nvml_sim_gpus > 0:
+            driver = SimulatedNvmlDriver(cfg.nvml_sim_gpus)
+        # driver=None → the ctypes binding to libnvidia-ml.so.1
+        # (BackendError naming the sim flags when the library does not
+        # load — explicit selection is loud).
+        return NvmlBackend(driver=driver)
     if choice in UNPORTED_BACKENDS:
         raise ValueError(f"backend {choice!r} is not yet ported to "
-                         "tpu_pod_exporter_torch (use torch or fake)")
+                         "tpu_pod_exporter_torch (use nvml, torch or fake)")
     raise ValueError(f"unknown backend: {choice}")
 
 
-def build_attribution(cfg: ExporterConfig) -> AttributionProvider:
+def build_attribution(cfg: ExporterConfig,
+                      resource_name: str | None = None) -> AttributionProvider:
     choice = cfg.attribution
+    if resource_name is None:
+        resource_name = cfg.resource_name
     if choice == "auto":
-        found = [p for p in (cfg.podresources_socket, cfg.checkpoint_path)
-                 if os.path.exists(p)]
-        if found:
-            raise ValueError(
-                f"kubelet attribution source {found[0]} found, but "
-                "podresources/checkpoint attribution is not yet ported to "
-                "tpu_pod_exporter_torch (pass --attribution none)")
-        log.info("no kubelet attribution source found; attribution disabled")
-        return FakeAttribution()
+        if os.path.exists(cfg.podresources_socket):
+            choice = "podresources"
+        elif os.path.exists(cfg.checkpoint_path):
+            choice = "checkpoint"
+        else:
+            log.info("no kubelet attribution source found; attribution disabled")
+            return FakeAttribution()
+        try:
+            return _build_named_attribution(choice, cfg, resource_name)
+        except Exception as e:  # noqa: BLE001
+            log.error("auto-selected %s attribution unavailable (%s); "
+                      "attribution disabled", choice, e)
+            return FakeAttribution()
+    return _build_named_attribution(choice, cfg, resource_name)
+
+
+def _build_named_attribution(choice: str, cfg: ExporterConfig,
+                             resource_name: str | None = None) -> AttributionProvider:
+    if resource_name is None:
+        resource_name = cfg.resource_name
     if choice in ("fake", "none"):
         return FakeAttribution()
-    if choice in UNPORTED_ATTRIBUTION:
-        raise ValueError(f"attribution {choice!r} is not yet ported to "
-                         "tpu_pod_exporter_torch (use none)")
+    if choice == "podresources":
+        from tpu_pod_exporter_torch.attribution.podresources import PodResourcesAttribution
+
+        return PodResourcesAttribution(
+            socket_path=cfg.podresources_socket, resource_name=resource_name
+        )
+    if choice == "checkpoint":
+        from tpu_pod_exporter_torch.attribution.checkpoint import CheckpointAttribution
+
+        return CheckpointAttribution(
+            path=cfg.checkpoint_path, uid_source=_build_uid_source(cfg)
+        )
     raise ValueError(f"unknown attribution: {choice}")
+
+
+def _build_uid_source(cfg: ExporterConfig) -> Any:
+    """UID→name resolver for the checkpoint path (None = uid-keyed series).
+    A static file wins over the kubelet /pods endpoint when both are set."""
+    if cfg.uid_map_file:
+        from tpu_pod_exporter_torch.attribution.uidmap import StaticUidMap
+
+        return StaticUidMap(cfg.uid_map_file)
+    if cfg.kubelet_pods_url:
+        from tpu_pod_exporter_torch.attribution.uidmap import (
+            DEFAULT_CA_FILE,
+            DEFAULT_TOKEN_FILE,
+            KubeletPodsUidMap,
+        )
+
+        token_file = cfg.kubelet_token_file
+        ca_file = cfg.kubelet_ca_file
+        if cfg.kubelet_pods_url.startswith("https:"):
+            if not ca_file and os.path.exists(DEFAULT_CA_FILE):
+                ca_file = DEFAULT_CA_FILE
+            # Auto-default the bearer token ONLY when TLS will actually be
+            # verified (CA resolved, or the operator explicitly opted out):
+            # a token over unverified TLS is a leaked cluster credential.
+            # Explicitly-configured tokens are policed by KubeletPodsUidMap
+            # itself, which refuses the combination at startup.
+            if not token_file and os.path.exists(DEFAULT_TOKEN_FILE):
+                if ca_file or cfg.kubelet_insecure_tls:
+                    token_file = DEFAULT_TOKEN_FILE
+                else:
+                    log.warning(
+                        "service-account token present but no CA bundle at "
+                        "%s; fetching %s WITHOUT auth rather than sending "
+                        "the token over unverified TLS (set "
+                        "--kubelet-ca-file or --kubelet-insecure-tls)",
+                        DEFAULT_CA_FILE, cfg.kubelet_pods_url,
+                    )
+        return KubeletPodsUidMap(
+            cfg.kubelet_pods_url,
+            token_file=token_file or None,
+            ca_file=ca_file or None,
+            refresh_s=cfg.kubelet_pods_refresh_s,
+            insecure_tls=cfg.kubelet_insecure_tls,
+        )
+    return None
 
 
 def refuse_unported_flags(cfg: ExporterConfig) -> None:
     """Raise ValueError naming every set flag whose layer this package
-    does not carry yet (recording, chaos, /proc scan, persistence,
-    egress) — a flag that is silently ignored reads as working."""
+    does not carry yet (chaos, persistence, egress) — a flag that is
+    silently ignored reads as working."""
     unported = [
         flag for flag, value in (
-            ("--record-to", cfg.record_to),
             ("--chaos-spec", cfg.chaos_spec),
-            ("--process-metrics", cfg.process_metrics),
             ("--state-dir", cfg.state_dir),
             ("--egress-url", cfg.egress_url),
         ) if value
@@ -108,7 +222,9 @@ class ExporterApp:
         refuse_unported_flags(cfg)
         self.cfg = cfg
         self.store = SnapshotStore()
-        self.backend = backend if backend is not None else build_backend(cfg)
+        self.backend = _maybe_record(
+            backend if backend is not None else build_backend(cfg), cfg
+        )
         # GPU-family backends join attribution on the GPU resource name
         # (nvidia.com/gpu device-plugin UUIDs) — one DaemonSet codebase,
         # the node pool's backend flag selects the family end to end.
@@ -119,7 +235,7 @@ class ExporterApp:
         )
         self.attribution = (
             attribution if attribution is not None
-            else build_attribution(cfg)
+            else build_attribution(cfg, self.resource_name)
         )
         topo = detect_host_topology(
             accelerator=cfg.accelerator,
@@ -129,10 +245,27 @@ class ExporterApp:
             multislice_group=cfg.multislice_group,
         )
         self.topology = topo  # effective (detected) values, for /debug/vars
-        # /proc scan, chaos injection, persistence and egress are refused
-        # above (refuse_unported_flags); their slots stay empty.
         scanner = None
+        if cfg.process_metrics:
+            from tpu_pod_exporter_torch.procscan import (
+                DEFAULT_DEVICE_PREFIXES,
+                GPU_DEVICE_PREFIXES,
+                ProcScanner,
+            )
+
+            # A GPU node's cards are /dev/nvidia<minor>, never accel/vfio.
+            scanner = ProcScanner(
+                proc_root=cfg.proc_root,
+                device_prefixes=(
+                    GPU_DEVICE_PREFIXES
+                    if getattr(self.backend, "family", "tpu") == "gpu"
+                    else DEFAULT_DEVICE_PREFIXES
+                ),
+                full_scan_every=cfg.process_full_scan_every,
+            )
         self.process_scanner = scanner
+        # Chaos injection, persistence and egress are refused above
+        # (refuse_unported_flags); their slots stay empty.
         self.chaos = {}
         # Source supervision (tpu_pod_exporter_torch.supervisor): per-phase
         # deadlines + circuit breakers + breaker-gated reconnects.

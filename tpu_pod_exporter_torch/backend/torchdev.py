@@ -19,8 +19,8 @@ Identity matches the NVML backend's, so the podresources join key is the
 same: ``device_path=/dev/nvidia{i}``, ``device_ids=("GPU-<uuid>", str(i))``,
 ``device_kind`` the device name, ``family="gpu"``. Under
 ``CUDA_VISIBLE_DEVICES`` the torch index ``i`` is not the ``/dev/nvidiaN``
-minor number; the UUID stays right, the path does not. NVML discovery is
-where that is resolved.
+minor number; the UUID stays right, the path does not. The NVML backend
+(``backend/nvml.py``) names the node by its minor number.
 
 No CUDA raises :class:`BackendError` at construction. A device whose
 memory stats raise gets ``None`` HBM plus a partial error, so the collector

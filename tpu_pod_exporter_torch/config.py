@@ -21,7 +21,7 @@ class ExporterConfig:
     port: int = 8000
     host: str = "0.0.0.0"
     interval_s: float = 1.0
-    backend: str = "auto"          # auto (= torch) | torch | fake
+    backend: str = "auto"          # auto | fake | torch | recorded | nvml
     attribution: str = "auto"      # auto | fake | podresources | checkpoint | none
     resource_name: str = "google.com/tpu"
     # Kubelet resource name GPU-family backends join attribution on (the
@@ -30,7 +30,7 @@ class ExporterConfig:
     gpu_resource_name: str = "nvidia.com/gpu"
     fake_chips: int = 0            # chip count when backend=fake
     # Simulated NVML driver (backend=nvml without an NVIDIA driver): GPU
-    # count for the default scripted tables. 0 = use the real pynvml
+    # count for the default scripted tables. 0 = use the real NVML
     # binding (or --nvml-sim-spec).
     nvml_sim_gpus: int = 0
     # JSON spec for the simulated NVML driver (per-GPU memory/utilization/

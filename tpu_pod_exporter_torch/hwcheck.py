@@ -13,11 +13,14 @@ Three phases against a live exporter scraped over real HTTP:
   3. **release** — free the allocation, scrape again.
 
 Assertions: device memory used rises under load and falls after release;
-utilization responds when the backend reports it (the torch backend does
-not, and the artifact says so). The JAX package also probes the libtpu
-metrics service; that probe has no counterpart on a GPU, and the artifact
-records ``"probe": "not ported"``.
+utilization responds when the backend reports it (NVML does; the torch
+backend does not, and the artifact says so). The JAX package also probes
+the libtpu metrics service; that probe has no counterpart on a GPU, and the
+artifact records ``"probe": "not ported"``.
 
+``--backend nvml`` reads the whole card through NVML, as a DaemonSet does;
+``--backend torch`` reads this process's allocator. For the gpu family each
+phase also records the per-process, per-holder and per-pod series.
 ``--backend fake`` drives the identical orchestration against a scripted
 backend — how the harness itself is tested with no card.
 """
@@ -47,35 +50,61 @@ _SERIES = {
 }
 
 
-def _scrape(base: str, family: str) -> dict:
-    """One /metrics scrape → {(role, chip_id): value} for the chip series
-    of ``family`` ("tpu" or "gpu"); role is used/total/peak/duty."""
+def _scrape(base: str) -> list:
+    """One /metrics scrape, parsed into samples."""
     from tpu_pod_exporter_torch.metrics.parse import parse_exposition
 
-    names = _SERIES[family]
     with urllib.request.urlopen(base + "/metrics", timeout=5) as resp:
-        text = resp.read().decode()
+        return list(parse_exposition(resp.read().decode()))
+
+
+def _sum_by(samples: list, name: str, *labels: str) -> dict:
+    """{"label/label": summed value} over the samples of ``name``."""
     out: dict = {}
-    for s in parse_exposition(text):
-        if s.name in names:
-            out[(names[s.name], s.labels.get("chip_id", ""))] = s.value
+    for s in samples:
+        if s.name == name:
+            key = "/".join(s.labels.get(label, "") for label in labels)
+            out[key] = out.get(key, 0.0) + s.value
     return out
 
 
-def _totals(series: dict) -> dict:
-    """Sum per role across chips; duty is max (any busy card counts)."""
+def _totals(samples: list, family: str) -> dict:
+    """Sum per role across chips; duty is max (any busy card counts). The
+    gpu family adds the process table by pid, the procfs holders, the pod
+    rollup by pod and the reference's {pid, pod} series."""
+    names = _SERIES[family]
+    series = {(names[s.name], s.labels.get("chip_id", "")): s.value
+              for s in samples if s.name in names}
+
     def values(role: str) -> list:
         return [v for (r, _), v in series.items() if r == role]
 
     peaks = values("peak")
     duties = values("duty")
-    return {
+    # The exporter's own poll phases: ms of the last poll, and the mean
+    # since it started (the first poll's includes the backend's init).
+    last = _sum_by(samples, "tpu_exporter_poll_duration_seconds", "phase")
+    sums = _sum_by(samples, "tpu_exporter_poll_phase_duration_seconds_sum", "phase")
+    counts = _sum_by(samples, "tpu_exporter_poll_phase_duration_seconds_count", "phase")
+    out = {
         "hbm_used_bytes": sum(values("used")),
         "hbm_total_bytes": sum(values("total")),
         "hbm_peak_bytes_max": max(peaks) if peaks else None,
         "duty_cycle_max_percent": max(duties) if duties else None,
         "series": len(series),
+        "poll_phase_last_ms": {phase: t * 1e3 for phase, t in last.items()},
+        "poll_phase_mean_ms": {phase: sums[phase] / n * 1e3
+                               for phase, n in counts.items() if n},
     }
+    if family == "gpu":
+        out["process_memory_bytes"] = _sum_by(
+            samples, "gpu_process_memory_used_bytes", "pid")
+        out["holder_pids"] = sorted(
+            {s.labels["pid"] for s in samples if s.name == "tpu_chip_process_info"})
+        out["pod_memory_bytes"] = _sum_by(samples, "gpu_pod_memory_used_bytes", "pod")
+        out["legacy_pod_memory_bytes"] = _sum_by(
+            samples, "pod_gpu_memory_usage", "pid", "pod")
+    return out
 
 
 class FakeStimulus:
@@ -100,9 +129,10 @@ class TorchStimulus:
 
     The defaults mirror the JAX package's stimulus (1 GiB held; width 1024,
     depth 4, batch 256; 20 forwards per burn step). ``stop()`` joins the
-    burn thread and drops every tensor, so the allocator's count — what the
-    torch backend reports as used — falls without ``empty_cache``. An error
-    in the burn thread is raised again from ``stop()``.
+    burn thread, drops every tensor and hands the cached blocks back to
+    the driver, so both the allocator's count (the torch backend's used)
+    and the driver's (NVML's used) fall. An error in the burn thread is
+    raised again from ``stop()``.
     """
 
     def __init__(self, hbm_bytes: int = 1 << 30, width: int = 1024,
@@ -152,12 +182,15 @@ class TorchStimulus:
         self._thread.start()
 
     def stop(self) -> None:
+        import torch
+
         self._burning.clear()
         if self._thread is not None:
             self._thread.join(timeout=60)
             if self._thread.is_alive():
                 raise RuntimeError("burn thread did not stop within 60 s")
         self._held = None  # drop the reference; the allocator reclaims it
+        torch.cuda.empty_cache()  # NVML counts what the allocator caches
         if self._error is not None:
             raise RuntimeError("burn thread failed") from self._error
 
@@ -167,32 +200,32 @@ def run_check(
     idle_s: float = 2.0,
     load_s: float = 8.0,
     stimulus=None,
+    exporter_args: dict | None = None,
 ) -> dict:
     """Run the three-phase check; returns the artifact dict.
 
-    ``backend`` is "torch" (the card, with a default :class:`TorchStimulus`)
-    or "fake" (scripted chips, :class:`FakeStimulus`). ``stimulus`` replaces
-    the default load: any object with ``start()`` and ``stop()``.
+    ``backend`` is "nvml" or "torch" (the card, with a default
+    :class:`TorchStimulus`) or "fake" (scripted chips,
+    :class:`FakeStimulus`). ``stimulus`` replaces the default load: any
+    object with ``start()`` and ``stop()``. ``exporter_args`` sets further
+    :class:`ExporterConfig` fields (attribution, process metrics, …).
     """
     from tpu_pod_exporter_torch.app import ExporterApp
     from tpu_pod_exporter_torch.config import ExporterConfig
 
-    if backend not in ("torch", "fake"):
-        raise ValueError(f"hwcheck backend must be torch or fake, not {backend!r}")
-    cfg = ExporterConfig(
-        port=0,
-        host="127.0.0.1",
-        interval_s=0.25,
-        backend=backend,
-        attribution="none",
-        fake_chips=2 if backend == "fake" else 0,
-    )
-    if backend == "torch":
-        from tpu_pod_exporter_torch.backend.torchdev import TorchCudaBackend
-
-        app = ExporterApp(cfg, backend=TorchCudaBackend())
-    else:
-        app = ExporterApp(cfg)
+    if backend not in ("nvml", "torch", "fake"):
+        raise ValueError(
+            f"hwcheck backend must be nvml, torch or fake, not {backend!r}")
+    cfg = ExporterConfig(**{
+        "port": 0,
+        "host": "127.0.0.1",
+        "interval_s": 0.25,
+        "backend": backend,
+        "attribution": "none",
+        "fake_chips": 2 if backend == "fake" else 0,
+        **(exporter_args or {}),
+    })
+    app = ExporterApp(cfg)
     family = getattr(app.backend, "family", "tpu")
     report: dict = {"backend": backend, "family": family, "phases": {},
                     "checks": {}, "ok": False,
@@ -209,19 +242,19 @@ def run_check(
             stim = TorchStimulus()
 
         time.sleep(idle_s)
-        idle = _totals(_scrape(base, family))
+        idle = _totals(_scrape(base), family)
         report["phases"]["idle"] = idle
 
         stim.start()
         try:
             time.sleep(load_s)
-            loaded = _totals(_scrape(base, family))
+            loaded = _totals(_scrape(base), family)
             report["phases"]["load"] = loaded
         finally:
             stim.stop()
 
         time.sleep(max(idle_s, 1.0))
-        after = _totals(_scrape(base, family))
+        after = _totals(_scrape(base), family)
         report["phases"]["release"] = after
 
         checks = report["checks"]
@@ -249,7 +282,7 @@ def run_check(
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--backend", default="torch", choices=["torch", "fake"])
+    p.add_argument("--backend", default="torch", choices=["nvml", "torch", "fake"])
     p.add_argument("--idle-s", type=float, default=2.0)
     p.add_argument("--load-s", type=float, default=8.0)
     p.add_argument("--out", default="", help="write the artifact JSON here")
