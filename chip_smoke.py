@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device    — the card's name, and nvidia-smi's name and power limit;
 2. build     — one nvcc call builds both tanh_matmul kernels (wgmma and
-               wmma) from this checkout;
+               wmma) from this checkout, and g++ the native library
+               (``libtpumon``) from the port's ``native/tpumon.cc``;
 3. kernel    — each kernel against tanh_matmul_plain on the card at the
                shapes that pick it (ragged M, N, K edges; K or N not a
                multiple of 8; a misaligned h), checking which kernel each
@@ -68,6 +69,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
                launch is on the wgmma kernel; ``--backend auto`` picks NVML;
                then NvmlBackend.sample() times over 200 calls idle and under
                the burn, and NVML's used beside the allocator's count.
+13. node      — the node's native fast path and durable state under the
+    state       16 GiB fill and the full-size burn: nativelib.load() gives the
+               libtpumon just built from the port's native/tpumon.cc; the live
+               exposition renders the same bytes natively and in Python; the
+               native and Python /proc walks give the same holders (this
+               process holds the card's node alone); the exporter's poll-phase
+               p50/p99 with the library on and off in turns; then the exporter
+               as a subprocess with --state-dir and --egress-url to an
+               in-process receiver, SIGKILLed mid-poll by chaos and restarted:
+               the history holds the filled level from before the kill, the
+               receiver's ledger has no gap and no re-sent batch and agrees
+               with that history, and three injected NVML errors are counted
+               and recovered from.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -167,6 +181,17 @@ REPO = Path(__file__).resolve().parent
 # pod a synthetic kubelet checkpoint gives the card to.
 NVML_SAMPLES = 200
 SMOKE_POD, SMOKE_POD_UID = "burn-0", "8a1d3f50-0c4e-4b6e-9f21-5d7c2b9e4a10"
+# The node state phase: the live exporter's poll phases in segments of this
+# length, with the native library on and off in turns; then a subprocess
+# exporter that chaos SIGKILLs on this device call, restarted on the same
+# state with three NVML errors from this call on.
+NODE_STATE_MODES = ("native", "python", "python", "native")
+NODE_STATE_SEGMENT_S = 4.0
+NODE_STATE_INTERVAL_S = 0.1
+NODE_STATE_RUN_INTERVAL_S = 0.25
+NODE_STATE_KILL_AT = 16
+NODE_STATE_ERRORS_AT = 12
+POLL_PHASES = ("device_read", "process_scan", "attribution", "publish", "total")
 
 
 def emit(phase: str, **fields) -> None:
@@ -742,6 +767,19 @@ def sample_ms(backend, calls: int = NVML_SAMPLES) -> dict:
             "calls": calls}
 
 
+def kubelet_fixture(tmp: str, uuid: str) -> dict:
+    """A synthetic kubelet checkpoint that gives the card ``uuid`` to the
+    smoke pod, and the pod's UID map, written under ``tmp``; returns the
+    exporter settings that read them."""
+    ckpt, uids = Path(tmp, "kubelet_internal_checkpoint"), Path(tmp, "uids.json")
+    ckpt.write_text(json.dumps({"Data": {"PodDeviceEntries": [
+        {"PodUID": SMOKE_POD_UID, "ContainerName": "burn",
+         "ResourceName": "nvidia.com/gpu", "DeviceIDs": {"-1": [uuid]}}]}}))
+    uids.write_text(json.dumps({SMOKE_POD_UID: {"name": SMOKE_POD, "namespace": "smoke"}}))
+    return {"attribution": "checkpoint", "checkpoint_path": str(ckpt),
+            "uid_map_file": str(uids)}
+
+
 def phase_nvml(dev, tm, hwcheck, uuid: str) -> dict:
     """The GPU node path on the card. Returns the launches by kernel of its
     closed loop."""
@@ -779,18 +817,12 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> dict:
 
     reset_counts(tm)
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt, uids = Path(tmp, "kubelet_internal_checkpoint"), Path(tmp, "uids.json")
-        ckpt.write_text(json.dumps({"Data": {"PodDeviceEntries": [
-            {"PodUID": SMOKE_POD_UID, "ContainerName": "burn",
-             "ResourceName": "nvidia.com/gpu", "DeviceIDs": {"-1": [torch_uuid]}}]}}))
-        uids.write_text(json.dumps({SMOKE_POD_UID: {"name": SMOKE_POD, "namespace": "smoke"}}))
         stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
                                      batch=BATCH, iters=ITERS, device=dev)
         report = hwcheck.run_check(
             backend="nvml", idle_s=2.0, load_s=8.0, stimulus=stim,
             exporter_args={"process_metrics": True, "legacy_metrics": True,
-                           "attribution": "checkpoint", "checkpoint_path": str(ckpt),
-                           "uid_map_file": str(uids)})
+                           **kubelet_fixture(tmp, torch_uuid)})
     by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
     emit("nvml_closed_loop", report=report, pid=os.getpid(), launches_by_kernel=by_kernel,
          burn_steps=stim.steps)
@@ -852,8 +884,391 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> dict:
     return by_kernel
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(url: str, timeout: float = 5.0) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def wait_for(predicate, timeout_s: float, what: str, interval_s: float = 0.05):
+    """Poll ``predicate`` until it returns a true value; raise naming
+    ``what`` when ``timeout_s`` passes first."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            got = predicate()
+        except OSError:  # the exporter is not listening yet
+            got = None
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"node state: {what} within {timeout_s:g} s")
+        time.sleep(interval_s)
+
+
+def samples_of(body: bytes, name: str) -> list:
+    from tpu_pod_exporter_torch.metrics.parse import parse_exposition
+
+    return [s for s in parse_exposition(body.decode()) if s.name == name]
+
+
+def phase_buckets(body: bytes) -> dict:
+    """{phase: {le: cumulative count}} of the exporter's poll-phase histogram."""
+    out: dict = {}
+    for s in samples_of(body, "tpu_exporter_poll_phase_duration_seconds_bucket"):
+        out.setdefault(s.labels["phase"], {})[float(s.labels["le"])] = s.value
+    return out
+
+
+def bucket_quantile(q: float, buckets: dict) -> float | None:
+    """Prometheus' histogram_quantile: linear inside the bucket that holds
+    rank q of the count; the highest finite bound past the last one."""
+    total = buckets.get(math.inf, 0.0)
+    if total <= 0:
+        return None
+    rank = q * total
+    prev_le, prev_count = 0.0, 0.0
+    for le in sorted(buckets):
+        count = buckets[le]
+        if count >= rank:
+            if le == math.inf:
+                return prev_le
+            return prev_le + (le - prev_le) * (rank - prev_count) / (count - prev_count)
+        prev_le, prev_count = le, count
+    return prev_le
+
+
+def host_ms_in_turns(fns: dict, reps: int = 20) -> dict:
+    """Median host ms a call of each function, called in turns."""
+    times: dict = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def render_parity(body: bytes) -> tuple[int, dict]:
+    """The served sample lines, rendered again natively through
+    ``render_layout`` and in Python through ``format_value``: all three must
+    be the same bytes. Returns the number of lines and each render's
+    median host ms."""
+    from array import array
+
+    from tpu_pod_exporter_torch.metrics import native
+    from tpu_pod_exporter_torch.metrics.registry import FamilyLayout, format_value
+
+    lines = [ln + b"\n" for ln in body.splitlines() if ln and not ln.startswith(b"#")]
+    prefixes, texts = zip(*(ln[:-1].rsplit(b" ", 1) for ln in lines))
+    values = array("d", map(float, texts))
+    layout = FamilyLayout(tuple((str(i),) for i in range(len(lines))), list(prefixes))
+
+    def python_render() -> bytes:
+        return b"".join(p + b" " + format_value(v).encode() + b"\n"
+                        for p, v in zip(prefixes, values))
+
+    native_bytes = native.render_layout(layout, values)
+    served = b"".join(lines)
+    if native_bytes is None or not native_bytes == python_render() == served:
+        raise AssertionError("node state: the native render, the Python render and the "
+                             "served exposition differ")
+    return len(lines), host_ms_in_turns({"native": lambda: native.render_layout(layout, values),
+                                         "python": python_render}, reps=200)
+
+
+class _Counted:
+    """Counts a bound method's calls and its non-None results."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.results = fn, 0, 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        out = self.fn(*args, **kwargs)
+        self.results += out is not None
+        return out
+
+
+def poll_phase_segments(app, base: str, nativelib) -> dict:
+    """The live exporter under the burn, in alternating segments of equal
+    length with the native library on and off (``nativelib.load`` answering
+    None makes every caller take its Python path, as on a node without the
+    library). Returns per mode the poll-phase p50/p99 from the exporter's
+    own histogram (bucket counts added over the mode's segments; the first
+    poll is before every segment), polls, full walks by path."""
+    scanner = app.process_scanner
+    native_walk = scanner._native_full_scan = _Counted(scanner._native_full_scan)
+    python_walk = scanner._python_full_scan = _Counted(scanner._python_full_scan)
+    load = nativelib.load
+    sums = {mode: {} for mode in ("native", "python")}
+    walks = {mode: {"native": 0, "python": 0, "full_scans": 0} for mode in sums}
+    try:
+        for mode in NODE_STATE_MODES:
+            nativelib.load = load if mode == "native" else (lambda: None)
+            time.sleep(2 * NODE_STATE_INTERVAL_S)  # the poll in flight ends
+            before = phase_buckets(http_get(base + "/metrics")[1])
+            counts = (native_walk.results, python_walk.calls, scanner.full_scans)
+            time.sleep(NODE_STATE_SEGMENT_S)
+            after = phase_buckets(http_get(base + "/metrics")[1])
+            walks[mode]["native"] += native_walk.results - counts[0]
+            walks[mode]["python"] += python_walk.calls - counts[1]
+            walks[mode]["full_scans"] += scanner.full_scans - counts[2]
+            for phase in POLL_PHASES:
+                acc = sums[mode].setdefault(phase, {})
+                for le, n in after[phase].items():
+                    acc[le] = acc.get(le, 0.0) + n - before.get(phase, {}).get(le, 0.0)
+    finally:
+        nativelib.load = load
+    out = {}
+    for mode, by_phase in sums.items():
+        out[mode] = {"polls": by_phase["total"][math.inf], **walks[mode]}
+        for phase, buckets in by_phase.items():
+            out[mode][phase] = {f"p{round(q * 100)}_ms": 1e3 * bucket_quantile(q, buckets)
+                                for q in (0.5, 0.99)}
+    if walks["native"]["python"] or not walks["native"]["native"]:
+        raise AssertionError(f"node state: the native segments walked /proc {walks['native']}")
+    if walks["python"]["native"] or not walks["python"]["python"]:
+        raise AssertionError(f"node state: the Python segments walked /proc {walks['python']}")
+    return out
+
+
+def ledger_receiver():
+    """A ChaosReceiver with no fault rules whose ledger also keeps each
+    acked sample's value by (labels, timestamp ms): the ledger the egress
+    demo reads, plus the values to hold against the exporter's history."""
+    from tpu_pod_exporter_torch.chaos import ChaosReceiver
+    from tpu_pod_exporter_torch.egress import parse_write_request, snappy_decompress
+
+    class LedgerReceiver(ChaosReceiver):
+        def __init__(self) -> None:
+            super().__init__([])
+            self.values: dict = {}
+
+        def _accept(self, h, body: bytes) -> None:
+            before = self.stats()["requests"]
+            super()._accept(h, body)
+            if self.stats()["requests"] > before:  # acked and in the ledger
+                for labels, samples in parse_write_request(snappy_decompress(body)):
+                    for value, ts_ms in samples:
+                        self.values[(tuple(sorted(labels.items())), ts_ms)] = value
+
+    return LedgerReceiver()
+
+
+def phase_node_state(dev, tm, hwcheck, uuid: str, libtpumon: Path) -> dict:
+    """Phase 13 under the full-size load held by this process: the native
+    path taken and equal to the Python one; history continuous across a
+    SIGKILL; egress with no loss and no acked re-send; recovery after three
+    injected NVML errors. Returns the launches by kernel of its load."""
+    import signal
+    import tempfile
+
+    from tpu_pod_exporter_torch import nativelib
+    from tpu_pod_exporter_torch.app import ExporterApp
+    from tpu_pod_exporter_torch.backend.torchdev import nvml_minors
+    from tpu_pod_exporter_torch.config import ExporterConfig
+    from tpu_pod_exporter_torch.procscan import GPU_DEVICE_PREFIXES, ProcScanner
+
+    t_phase = time.monotonic()
+    nativelib.reset_for_tests()
+    lib = nativelib.load()
+    loaded = None if lib is None else Path(lib._name)
+    if loaded != libtpumon:
+        raise AssertionError(f"node state: nativelib.load() gave {loaded}, not {libtpumon}")
+    node = f"/dev/nvidia{nvml_minors()[uuid]}"
+
+    reset_counts(tm)
+    stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
+                                 batch=BATCH, iters=ITERS, device=dev)
+    procs: list = []
+    recv = ledger_receiver()
+    tmp = tempfile.TemporaryDirectory()
+    stim.start()
+    try:
+        kubelet = kubelet_fixture(tmp.name, uuid)
+
+        # (a) native: the walks over this machine's /proc, then the live
+        # exporter's exposition and its poll phases by path.
+        scanner = ProcScanner(device_prefixes=GPU_DEVICE_PREFIXES)
+        walk_native, walk_python = scanner._native_full_scan(), scanner._python_full_scan()
+        mine = walk_native.get(os.getpid(), ()) if walk_native is not None else ()
+        if walk_native is None or walk_native != walk_python:
+            raise AssertionError(f"node state: /proc walks differ: native {walk_native}, "
+                                 f"Python {walk_python}")
+        if [h.device_path for h in mine] != [node]:
+            raise AssertionError(f"node state: this process holds {mine}, not {node} alone")
+        walk_ms = host_ms_in_turns({"native": scanner._native_full_scan,
+                                    "python": scanner._python_full_scan})
+        app = ExporterApp(ExporterConfig(port=0, host="127.0.0.1", backend="nvml",
+                                         process_metrics=True,
+                                         interval_s=NODE_STATE_INTERVAL_S, **kubelet))
+        app.start()
+        try:
+            base = f"http://127.0.0.1:{app.port}"
+            body = http_get(base + "/metrics")[1]
+            lines, render_ms = render_parity(body)
+            segments = poll_phase_segments(app, base, nativelib)
+        finally:
+            app.stop()
+        emit("node_state_native", library=str(loaded.relative_to(REPO)), node=node,
+             holders={str(pid): [h.device_path for h in hs] for pid, hs in walk_native.items()},
+             proc_entries=sum(e.isdigit() for e in os.listdir("/proc")),
+             full_walk_ms=walk_ms, render_lines=lines, render_ms=render_ms,
+             segment_s=NODE_STATE_SEGMENT_S, interval_s=NODE_STATE_INTERVAL_S,
+             modes=list(NODE_STATE_MODES), poll_phase_ms=segments)
+
+        # (b) and (c): a subprocess exporter on a state dir and egress,
+        # SIGKILLed mid-poll by chaos, then restarted on the same dirs.
+        recv.start()
+        port = free_port()
+        url = f"http://127.0.0.1:{port}"
+        state_dir, egress_dir = Path(tmp.name, "state"), Path(tmp.name, "egress")
+        log_path = Path(tmp.name, "exporter.log")
+        args = [sys.executable, "-m", "tpu_pod_exporter_torch", "--host", "127.0.0.1",
+                "--port", str(port), "--interval-s", str(NODE_STATE_RUN_INTERVAL_S),
+                "--log-level", "warning", "--backend", "nvml", "--process-metrics",
+                "--attribution", "checkpoint", "--checkpoint-path", kubelet["checkpoint_path"],
+                "--uid-map-file", kubelet["uid_map_file"], "--state-dir", str(state_dir),
+                "--state-fsync-interval-s", "0", "--egress-url", recv.url,
+                "--egress-dir", str(egress_dir), "--egress-interval-s", "0"]
+
+        def start(spec: str):
+            log = open(log_path, "ab")
+            procs.append(subprocess.Popen(args + ["--chaos-spec", spec], cwd=REPO,
+                                          stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+            return procs[-1]
+
+        def ready():
+            status, body = http_get(url + "/readyz")
+            return status == 200 and json.loads(body).get("ready") is True
+
+        def used() -> float | None:
+            rows = samples_of(http_get(url + "/metrics")[1], "gpu_hbm_used_bytes")
+            return rows[0].value if len(rows) == 1 else None
+
+        t_start = time.time()
+        first = start(f"kill:device:1:@{NODE_STATE_KILL_AT}:x1")
+        wait_for(ready, 30, "the first run ready")
+        used_before = wait_for(used, 10, "gpu_hbm_used_bytes in the first run")
+        first.wait(timeout=60)
+        t_killed = time.time()
+        if first.returncode != -signal.SIGKILL:
+            raise AssertionError(f"node state: the first run exited {first.returncode}, "
+                                 "not by SIGKILL\n" + log_path.read_text()[-2000:])
+
+        # (d) in the second run: three NVML errors on the device source.
+        second = start(f"err:device:1:nvml=gpu_is_lost:@{NODE_STATE_ERRORS_AT}:x3")
+        wait_for(ready, 30, "the restarted run ready")
+        t_ready = time.time()
+        restore = json.loads(http_get(url + "/debug/vars")[1]).get("persist", {}).get("restore")
+        history = json.loads(http_get(
+            url + f"/api/v1/query_range?metric=gpu_hbm_used_bytes"
+                  f"&start={t_start - 5:.3f}&end={time.time() + 1:.3f}")[1])["data"]["result"]
+        points = [(t, v) for row in history for t, v in row["values"]]
+        before_kill = [v for t, v in points if t <= t_killed]
+        if not (len(history) == 1 and before_kill and max(before_kill) >= FILL_BYTES):
+            raise AssertionError(f"node state: the history across the kill: {len(history)} "
+                                 f"series, pre-kill values {before_kill[-5:]}")
+
+        def injected():
+            doc = json.loads(http_get(url + "/debug/vars")[1])
+            return len(doc.get("chaos", {}).get("device", {}).get("injected", [])) == 3
+
+        wait_for(injected, 30, "three injected NVML errors")
+        t_errors = time.time()
+
+        def device_errors() -> list:
+            return [s.value for s in samples_of(http_get(url + "/metrics")[1],
+                                                "tpu_exporter_poll_errors_total")
+                    if s.labels.get("source") == "device_read"]
+
+        wait_for(lambda: sum(device_errors()) >= 3, 10, "three device errors counted")
+        errors = device_errors()
+        wait_for(lambda: (used() or 0.0) >= FILL_BYTES and samples_of(
+            http_get(url + "/metrics")[1], "tpu_exporter_up")[0].value == 1.0,
+            30, "the card's used memory after the errors")
+        t_recovered = time.time()
+        used_after = used()
+        breaker = json.loads(http_get(url + "/debug/vars")[1])["supervisors"]["device"]
+        wait_for(lambda: samples_of(http_get(url + "/metrics")[1],
+                                    "tpu_exporter_egress_backlog_batches")[0].value == 0.0,
+                 30, "the egress backlog drained")
+        history = json.loads(http_get(
+            url + f"/api/v1/query_range?metric=gpu_hbm_used_bytes"
+                  f"&start={t_start - 5:.3f}&end={time.time() + 1:.3f}")[1])["data"]["result"]
+        second.send_signal(signal.SIGTERM)
+        second.wait(timeout=30)
+        seen = {int(t * 1000): v for row in history for t, v in row["values"]}
+        shipped = {ts: v for (labels, ts), v in recv.values.items()
+                   if dict(labels).get("__name__") == "gpu_hbm_used_bytes"}
+        matched = [ts for ts in shipped if ts in seen]
+        stats = recv.stats()
+        seqs = stats["accepted_seqs"]
+        missing = sorted(set(range(min(seqs), max(seqs) + 1)) - set(seqs)) if seqs else None
+        ledger = {"batches": len(seqs), "seq_first": min(seqs, default=None),
+                  "seq_last": max(seqs, default=None), "missing_seqs": missing,
+                  "duplicate_seqs": stats["duplicate_seqs"],
+                  "duplicate_samples": stats["duplicate_samples"],
+                  "accepted_samples": stats["accepted_samples"],
+                  "gpu_hbm_used_bytes_samples": len(shipped),
+                  "matched_in_history": len(matched),
+                  "shipped_before_kill": sum(ts <= t_killed * 1000 for ts in shipped)}
+        emit("node_state_restart", used_before_kill=used_before, kill_at_call=NODE_STATE_KILL_AT,
+             killed_after_s=t_killed - t_start, restart_ready_after_s=t_ready - t_killed,
+             restore=restore, history_points=len(points), before_kill_points=len(before_kill),
+             before_kill_max=max(before_kill), second_rc=second.returncode)
+        emit("node_state_egress", ledger=ledger)
+        emit("node_state_chaos", spec=f"err:device:1:nvml=gpu_is_lost:@{NODE_STATE_ERRORS_AT}:x3",
+             device_errors=errors, recovered_after_s=t_recovered - t_errors,
+             used_after=used_after, breaker_transitions=breaker["transitions"],
+             reconnects=breaker["reconnects"])
+        if missing or stats["duplicate_seqs"] or stats["duplicate_samples"]:
+            raise AssertionError(f"node state: egress lost or re-sent batches: {ledger}")
+        if not ledger["shipped_before_kill"] or not matched or any(
+                shipped[ts] != seen[ts] for ts in matched):
+            raise AssertionError(f"node state: the ledger's gpu_hbm_used_bytes against the "
+                                 f"exporter's history: {ledger}")
+        if max(shipped.values()) < FILL_BYTES:
+            raise AssertionError("node state: no shipped sample at the filled level")
+        if errors != [3.0]:
+            raise AssertionError(f"node state: device errors counted {errors}, not [3]")
+        if second.returncode != 0:
+            raise AssertionError(f"node state: the restarted run exited {second.returncode}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        recv.stop()
+        stim.stop()
+        tmp.cleanup()
+    launches = tm.tanh_matmul.launches
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    emit("node_state", seconds=time.monotonic() - t_phase, burn_steps=stim.steps,
+         launches_by_kernel=by_kernel)
+    if launches <= 0:
+        raise AssertionError("no tanh_matmul launch during the node state phase")
+    check_all_wgmma(tm, "node state", launches)
+    return by_kernel
+
+
 def main() -> int:
-    from tpu_pod_exporter_torch import hwcheck
+    from tpu_pod_exporter_torch import hwcheck, nativelib
     from tpu_pod_exporter_torch.kernels import online_softmax as osm
     from tpu_pod_exporter_torch.kernels import sgd
     from tpu_pod_exporter_torch.kernels import tanh_matmul as tm
@@ -879,6 +1294,11 @@ def main() -> int:
     emit("build", seconds=time.monotonic() - t0, library=path.name,
          ptxas=[ln.strip() for ln in log.splitlines()
                 if "ptxas" in ln or "spill" in ln])  # spills print unprefixed
+    t0 = time.monotonic()
+    prebuilt = nativelib.library_path().exists()
+    libtpumon = nativelib.build()
+    emit("build_libtpumon", seconds=time.monotonic() - t0, prebuilt=prebuilt,
+         library=str(libtpumon.relative_to(REPO)), flags=list(nativelib.CXX_FLAGS))
 
     records = phase_kernel(dev, tm)
     phase_workload(dev, tm, wl)
@@ -896,13 +1316,15 @@ def main() -> int:
     parallel = phase_parallel(dev, tm, sgd, osm, par)
     torch.cuda.empty_cache()
     nvml = phase_nvml(dev, tm, hwcheck, uuid)
+    torch.cuda.empty_cache()
+    node_state = phase_node_state(dev, tm, hwcheck, uuid, libtpumon)
 
     # Launches on the main paths: the closed loop, the training run, the
-    # collective programs and the NVML closed loop.
+    # collective programs, the NVML closed loop and the node state phase.
     names = (*SOURCES, "sgd", "online_softmax")
     by_path = {kernel: {"closed_loop": closed_loop.get(kernel, 0),
                         "train": train.get(kernel, 0), "parallel": parallel[kernel],
-                        "nvml": nvml.get(kernel, 0)}
+                        "nvml": nvml.get(kernel, 0), "node_state": node_state.get(kernel, 0)}
                for kernel in names}
     kernels = [{
         "name": tm.ENTRIES[kernel],

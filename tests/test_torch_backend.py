@@ -1,7 +1,8 @@
 """TorchCudaBackend against a stand-in ``torch.cuda`` (mirrors
 tests/test_backend_jaxdev.py): no CUDA fails loudly, readings and identity
-map as the NVML backend's do, and a device whose stats raise publishes no
-``gpu_hbm_*`` series — absent beats fake-zero."""
+map as the NVML backend's do, the device node is NVML's minor for the UUID
+(or "" without NVML, never the torch index), and a device whose stats raise
+publishes no ``gpu_hbm_*`` series — absent beats fake-zero."""
 
 from types import SimpleNamespace
 
@@ -10,6 +11,7 @@ import torch
 
 from tpu_pod_exporter_torch.attribution.fake import FakeAttribution
 from tpu_pod_exporter_torch.backend import BackendError
+from tpu_pod_exporter_torch.backend import torchdev
 from tpu_pod_exporter_torch.backend.torchdev import TorchCudaBackend
 from tpu_pod_exporter_torch.collector import Collector
 from tpu_pod_exporter_torch.metrics import SnapshotStore
@@ -31,6 +33,11 @@ class FakeCuda:
             raise RuntimeError(f"CUDA error on device {i}")
 
     def install(self, monkeypatch):
+        def no_nvml():
+            raise BackendError("libnvidia-ml.so.1 could not be loaded")
+
+        # The stand-in has no NVML beside it.
+        monkeypatch.setattr(torchdev, "CtypesNvmlDriver", no_nvml)
         cuda = torch.cuda
         monkeypatch.setattr(cuda, "is_available", lambda: True)
         monkeypatch.setattr(cuda, "device_count", lambda: self.n)
@@ -62,6 +69,32 @@ class FakeCuda:
         return SimpleNamespace(uuid=f"{self.uuid_prefix}0000000{i}-aaaa-bbbb-cccc-dddddddddddd")
 
 
+class FakeNvml:
+    """NVML's calls for the stand-in's cards, each at its own minor."""
+
+    def __init__(self, minors):
+        self.minors = minors  # index -> minor
+        self.shut = False
+
+    def nvmlInit(self):  # noqa: N802 — NVML API casing
+        pass
+
+    def nvmlShutdown(self):  # noqa: N802
+        self.shut = True
+
+    def nvmlDeviceGetCount(self):  # noqa: N802
+        return len(self.minors)
+
+    def nvmlDeviceGetHandleByIndex(self, i):  # noqa: N802
+        return i
+
+    def nvmlDeviceGetUUID(self, i):  # noqa: N802
+        return f"GPU-0000000{i}-aaaa-bbbb-cccc-dddddddddddd"
+
+    def nvmlDeviceGetMinorNumber(self, i):  # noqa: N802
+        return self.minors[i]
+
+
 class TestTorchCudaBackend:
     def test_no_cuda_raises_backend_error(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -77,7 +110,7 @@ class TestTorchCudaBackend:
         assert len(sample.chips) == 2
         for i, chip in enumerate(sample.chips):
             assert chip.info.chip_id == i
-            assert chip.info.device_path == f"/dev/nvidia{i}"
+            assert chip.info.device_path == ""  # no NVML: no node, never the index
             assert chip.info.device_ids == (
                 f"GPU-0000000{i}-aaaa-bbbb-cccc-dddddddddddd", str(i))
             assert chip.info.device_kind == "NVIDIA H100 80GB HBM3"
@@ -86,6 +119,27 @@ class TestTorchCudaBackend:
             assert chip.hbm_total_bytes == float(80 * GIB)
             assert chip.hbm_peak_bytes == float((i + 3) * GIB)
             assert chip.tensorcore_duty_cycle_percent is None
+
+    def test_device_path_is_nvml_minor_for_the_uuid(self, monkeypatch):
+        FakeCuda(n=1).install(monkeypatch)
+        nvml = FakeNvml({0: 3})  # index 0 is the host's /dev/nvidia3
+        (chip,) = TorchCudaBackend(nvml_driver=nvml).sample().chips
+        assert chip.info.device_path == "/dev/nvidia3"
+        assert nvml.shut
+
+    def test_failing_nvml_call_leaves_the_node_unnamed(self, monkeypatch):
+        from tpu_pod_exporter_torch.backend.nvml import NvmlDriverError
+
+        FakeCuda(n=1).install(monkeypatch)
+        nvml = FakeNvml({0: 3})
+
+        def lost(i):
+            raise NvmlDriverError("gpu_is_lost")
+
+        nvml.nvmlDeviceGetMinorNumber = lost
+        (chip,) = TorchCudaBackend(nvml_driver=nvml).sample().chips
+        assert chip.info.device_path == ""
+        assert nvml.shut
 
     def test_uuid_already_in_nvml_form_is_kept(self, monkeypatch):
         FakeCuda(n=1, uuid_prefix="GPU-").install(monkeypatch)

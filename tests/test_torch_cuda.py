@@ -5,8 +5,10 @@ against its plain version bit for bit, the gradient through the kernels,
 a training step on one card, ring attention's running-softmax kernel
 against its plain version at its edge cases, the ring program on one card
 against plain attention, the backend reading the allocator, a small
-closed loop, and the NVML binding against torch, the card's memory and
-this process's device node. Every test carries the ``gpu``
+closed loop, the NVML binding against torch, the card's memory and
+this process's device node, the torch and NVML backends naming one node for
+one card, and the port's native library built and loaded there. Every test
+carries the ``gpu``
 marker, needs a CUDA device and skips without one; on a machine with a card
 run
 
@@ -437,3 +439,48 @@ def test_this_process_holds_the_minor_node(dev):
         assert chips[uuid].info.device_path == node
     finally:
         backend.close()
+
+
+def test_torch_and_nvml_backends_name_one_node(dev):
+    from tpu_pod_exporter_torch.backend.nvml import NvmlBackend
+    from tpu_pod_exporter_torch.backend.torchdev import TorchCudaBackend
+
+    driver, handle = _nvml_card(dev)
+    try:
+        node = f"/dev/nvidia{driver.nvmlDeviceGetMinorNumber(handle)}"
+    finally:
+        driver.nvmlShutdown()
+    torch_chips = {c.info.device_ids[0]: c.info.device_path
+                   for c in TorchCudaBackend().sample().chips}
+    nvml = NvmlBackend()
+    try:
+        nvml_chips = {c.info.device_ids[0]: c.info.device_path
+                      for c in nvml.sample().chips}
+    finally:
+        nvml.close()
+    assert set(torch_chips) <= set(nvml_chips)
+    for uuid, path in torch_chips.items():
+        assert path == nvml_chips[uuid]
+    (uuid,) = [u for u, p in nvml_chips.items() if p == node]
+    assert torch_chips[uuid] == node
+
+
+def test_native_library_builds_and_loads(dev, tmp_path):
+    import os
+
+    from tpu_pod_exporter_torch import nativelib
+    from tpu_pod_exporter_torch.metrics import native
+    from tpu_pod_exporter_torch.procscan import GPU_DEVICE_PREFIXES, ProcScanner
+
+    nativelib.reset_for_tests()
+    lib = native.load()
+    assert lib is not None
+    assert lib._name == str(nativelib.library_path())
+    assert native.render_lines([b'm{a="1"}', b"m"], [1.0, 2.5]) == b'm{a="1"} 1\nm 2.5\n'
+    torch.ones(1, device=dev)  # the context holds the card's node from here on
+    scanner = ProcScanner(device_prefixes=GPU_DEVICE_PREFIXES)
+    native_walk = scanner._native_full_scan()
+    assert native_walk is not None
+    mine = native_walk.get(os.getpid(), ())
+    assert mine == scanner._python_full_scan().get(os.getpid(), ())
+    assert mine and all(h.device_path.startswith("/dev/nvidia") for h in mine)

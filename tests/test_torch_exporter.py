@@ -5,7 +5,8 @@ scraped over HTTP: the /metrics bodies must have the same lines in the same
 order, with equal values outside the timing and process self-metrics. Then
 the port's hwcheck orchestration (mirrors tests/test_hwcheck.py), and the
 backend, attribution and flag selection: what builds, and what the port
-still refuses.
+still refuses. A second config with persistence and egress on goes through
+both apps the same way.
 """
 
 import json
@@ -89,6 +90,33 @@ class TestMetricsParity:
             if want_value != got_value:
                 assert want_key.startswith(VOLATILE_FAMILIES), (want, got)
         assert "gpu_hbm_used_bytes" not in torch_body.decode()  # tpu-family fakes
+
+    def test_state_dir_and_egress_bodies_match_line_for_line(self, tmp_path):
+        """--state-dir and --egress-url on: the persister and shipper add
+        their self-metrics to both bodies alike."""
+        apps = []
+        try:
+            for name, app_cls, cfg_cls in (("jax", JaxExporterApp, JaxExporterConfig),
+                                           ("torch", tapp.ExporterApp, ExporterConfig)):
+                apps.append(app_cls(cfg_cls(
+                    **FAKE_CONFIG, state_dir=str(tmp_path / name / "state"),
+                    egress_url="http://127.0.0.1:9/api/v1/write",
+                    egress_dir=str(tmp_path / name / "egress"))))
+            jax_body, torch_body = (_get(_serve(app), "/metrics")[1].decode()
+                                    for app in apps)
+        finally:
+            for app in apps:
+                app.stop()
+        jax_lines, torch_lines = jax_body.splitlines(), torch_body.splitlines()
+        assert len(jax_lines) == len(torch_lines) > 100
+        for want, got in zip(jax_lines, torch_lines):
+            want_key, want_value = _split(want)
+            got_key, got_value = _split(got)
+            assert got_key == want_key
+            if want_value != got_value:
+                assert want_key.startswith(VOLATILE_FAMILIES), (want, got)
+        assert "tpu_exporter_egress_backlog_batches" in torch_body
+        assert "tpu_exporter_persist_wal_bytes" in torch_body
 
     def test_stream_route_answers_the_same_404(self, both_apps):
         jax_base, torch_base = both_apps
@@ -213,19 +241,24 @@ class TestRefusals:
         ("egress_url", "http://127.0.0.1:9/write", "--egress-url"),
     ])
     def test_unported_flags_raise(self, field, value, flag, tmp_path, monkeypatch):
-        """--chaos-spec, --state-dir and --egress-url are still refused;
-        --record-to and --process-metrics build their layer."""
+        """Every one of these flags builds its layer: --record-to the
+        recording backend, --chaos-spec the chaos wrappers, --process-metrics
+        the scanner, --state-dir the persister, --egress-url the shipper."""
         monkeypatch.chdir(tmp_path)
+        extra = {"egress_dir": str(tmp_path / "egress")} if flag == "--egress-url" else {}
         cfg = ExporterConfig(port=0, backend="fake", attribution="none",
-                             **{field: value})
-        if flag not in ("--record-to", "--process-metrics"):
-            with pytest.raises(ValueError, match=flag):
-                tapp.ExporterApp(cfg)
-            return
+                             **{field: value}, **extra)
         app = tapp.ExporterApp(cfg)
         try:
             if flag == "--record-to":
                 assert app.backend.name == "recording(fake)"
+            elif flag == "--chaos-spec":
+                assert app.chaos and "device" in app.chaos
+            elif flag == "--state-dir":
+                assert app.persister is not None
+            elif flag == "--egress-url":
+                assert app.shipper is not None
+                assert app.shipper.url == value
             else:
                 assert app.process_scanner is not None
         finally:

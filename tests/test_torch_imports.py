@@ -25,8 +25,10 @@ VERBATIM = (
     "attribution/checkpoint.py", "attribution/podresources.py",
     "attribution/proto/__init__.py", "attribution/proto/podresources_pb2.py",
     "attribution/uidmap.py",
-    "backend/__init__.py", "backend/fake.py", "collector.py", "history.py",
-    "metrics/__init__.py", "metrics/parse.py", "metrics/schema.py",
+    "backend/__init__.py", "backend/fake.py", "chaos.py", "collector.py",
+    "egress.py", "history.py",
+    "metrics/__init__.py", "metrics/native.py", "metrics/parse.py",
+    "metrics/schema.py",
     "supervisor.py", "topology.py", "utils.py", "version.py",
 )
 # Copied modules with a few lines changed beyond the rename:
@@ -40,8 +42,17 @@ EDITED = {
     "backend/discovery.py": (57, 26),
     # Its own _link_sort_key in place of the import from backend/libtpu.
     "backend/recorded.py": (3, 9),
-    # No native /proc walk; GPU prefixes match /dev/nvidia<minor> only.
-    "procscan.py": (79, 18),
+    # GPU prefixes match /dev/nvidia<minor> only, in both /proc walks.
+    "procscan.py": (7, 18),
+    # The library is this package's own build of native/tpumon.cc, compiled
+    # with g++ at first use into _build/, never the JAX package's .so.
+    "nativelib.py": (4, 48),
+    # --backend torch|nvml (jax and libtpu refused); the GPU scan prefixes.
+    "app.py": (16, 32),
+    # The WAL restore names GPU series' labels (the reference restores them
+    # label-less from the WAL: it looks only in ALL_SPECS); docstring: no
+    # history reference.
+    "persist.py": (3, 3),
     "metrics/registry.py": (1, 1),  # comment: no history reference
     "pressure.py": (1, 1),          # docstring: no history reference
     "trace.py": (1, 1),             # docstring: no history reference
@@ -94,6 +105,9 @@ def test_entry_modules_load_no_jax():
         "import tpu_pod_exporter_torch.backend.discovery\n"
         "import tpu_pod_exporter_torch.backend.recorded\n"
         "import tpu_pod_exporter_torch.procscan\n"
+        "import tpu_pod_exporter_torch.nativelib, tpu_pod_exporter_torch.metrics.native\n"
+        "import tpu_pod_exporter_torch.persist, tpu_pod_exporter_torch.egress\n"
+        "import tpu_pod_exporter_torch.chaos\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -103,6 +117,7 @@ def test_entry_modules_load_no_jax():
     assert "tpu_pod_exporter_torch.app" in added
     assert "tpu_pod_exporter_torch.loadgen.selftest" in added
     assert "tpu_pod_exporter_torch.backend.nvml_ctypes" in added
+    assert "tpu_pod_exporter_torch.chaos" in added
     assert [m for m in added if _forbidden(m)] == []
     # The card's path needs neither gRPC nor protobuf nor pynvml: the
     # kubelet podresources client loads them only when it is selected.
@@ -118,6 +133,11 @@ def _diff_counts(rel: str) -> tuple[int, int]:
     changed = [op for op in ops if op[0] != "equal"]
     return (sum(i2 - i1 for _, i1, i2, _, _ in changed),
             sum(j2 - j1 for _, _, _, j1, j2 in changed))
+
+
+def test_native_source_is_the_reference_byte_for_byte():
+    assert ((PORT / "native" / "tpumon.cc").read_bytes()
+            == (REPO / "native" / "tpumon.cc").read_bytes())
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

@@ -18,6 +18,12 @@ same relative path:
   CUDA caching allocator;
 - ``hwcheck.py`` — the closed-loop check: a live exporter scraped over
   HTTP while a stimulus loads the card;
+- ``nativelib.py`` — the package's own ``libtpumon``, built with g++ at
+  first use from ``native/tpumon.cc`` into ``_build/``: the native
+  exposition renderer (``metrics/native.py``) and ``/proc`` walk;
+- ``persist.py``, ``egress.py``, ``chaos.py`` — restart survivability
+  (``--state-dir``), remote-write shipping (``--egress-url``) and fault
+  injection (``--chaos-spec``);
 - the exporter core (collector, registry, server, history, …), copied from
   the JAX package with only the package name changed, so that the port
   holds no import of it.

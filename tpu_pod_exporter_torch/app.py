@@ -190,22 +190,6 @@ def _build_uid_source(cfg: ExporterConfig) -> Any:
     return None
 
 
-def refuse_unported_flags(cfg: ExporterConfig) -> None:
-    """Raise ValueError naming every set flag whose layer this package
-    does not carry yet (chaos, persistence, egress) — a flag that is
-    silently ignored reads as working."""
-    unported = [
-        flag for flag, value in (
-            ("--chaos-spec", cfg.chaos_spec),
-            ("--state-dir", cfg.state_dir),
-            ("--egress-url", cfg.egress_url),
-        ) if value
-    ]
-    if unported:
-        raise ValueError(", ".join(unported) + " not yet ported to "
-                         "tpu_pod_exporter_torch")
-
-
 class ExporterApp:
     """Everything needed to run (and cleanly stop) one exporter instance.
 
@@ -219,7 +203,6 @@ class ExporterApp:
         backend: DeviceBackend | None = None,
         attribution: AttributionProvider | None = None,
     ) -> None:
-        refuse_unported_flags(cfg)
         self.cfg = cfg
         self.store = SnapshotStore()
         self.backend = _maybe_record(
@@ -264,9 +247,20 @@ class ExporterApp:
                 full_scan_every=cfg.process_full_scan_every,
             )
         self.process_scanner = scanner
-        # Chaos injection, persistence and egress are refused above
-        # (refuse_unported_flags); their slots stay empty.
+        # Deterministic fault injection (TEST ONLY, --chaos-spec): wraps the
+        # sources BEFORE supervision so injected hangs/errors exercise the
+        # real deadline/breaker/reconnect path.
         self.chaos = {}
+        if cfg.chaos_spec:
+            from tpu_pod_exporter_torch.chaos import apply_chaos
+
+            log.warning("chaos injection active (spec=%r seed=%d) — "
+                        "test-only configuration", cfg.chaos_spec, cfg.chaos_seed)
+            self.backend, self.attribution, scanner, self.chaos = apply_chaos(
+                cfg.chaos_spec, cfg.chaos_seed,
+                self.backend, self.attribution, scanner,
+            )
+            self.process_scanner = scanner
         # Source supervision (tpu_pod_exporter_torch.supervisor): per-phase
         # deadlines + circuit breakers + breaker-gated reconnects.
         # --phase-deadline-s 0 disables (direct in-thread calls).
@@ -360,11 +354,71 @@ class ExporterApp:
                     StackSampler() if cfg.trace_slow_poll_s > 0 else None
                 ),
             )
-        # Persistence (--state-dir) and egress (--egress-url) are refused
-        # above, so there is no restored state and no warm start.
+        # Crash-safe state persistence (tpu_pod_exporter_torch.persist): periodic
+        # checksummed checkpoint + WAL under --state-dir covering the
+        # history rings, breaker states, and the last published exposition.
+        # Restored state is applied HERE, before the first poll: breakers
+        # resume their quarantine, history answers across the restart, and
+        # the restored exposition serves immediately (warm start).
+        # --state-dir "" (the default) cleanly disables the whole layer.
         self.persister = None
         self._warm_snapshot = None
+        if cfg.state_dir:
+            from tpu_pod_exporter_torch.persist import (
+                RestoredSnapshot,
+                StatePersister,
+            )
+
+            self.persister = StatePersister(
+                cfg.state_dir,
+                history=self.history,
+                supervisors=self.supervisors,
+                # Late-bound: whatever is being served when a checkpoint
+                # rotates (live snapshot, or the restored one during warm).
+                exposition_fn=lambda: self.store.current(),
+                snapshot_interval_s=cfg.state_snapshot_interval_s,
+                fsync_interval_s=cfg.state_fsync_interval_s,
+            )
+            restored = self.persister.load()
+            if restored.exposition:
+                self._warm_snapshot = RestoredSnapshot(
+                    restored.exposition, restored.exposition_ts
+                )
+        # Remote-write egress (tpu_pod_exporter_torch.egress): WAL-buffered push
+        # shipping of the tracked families to --egress-url. The durable
+        # send buffer replays at construction (a backlog left by a crash
+        # resumes delivery from the fsynced ack cursor — zero loss, no
+        # acked re-send). --egress-url "" (the default) disables.
         self.shipper = None
+        if cfg.egress_url:
+            from tpu_pod_exporter_torch.egress import (
+                RemoteWriteShipper,
+                build_breaker,
+            )
+
+            egress_breaker = build_breaker(
+                cfg.egress_breaker_failures,
+                cfg.egress_breaker_backoff_s,
+                cfg.egress_breaker_backoff_max_s,
+            )
+            t = topo.labels()
+            self.shipper = RemoteWriteShipper(
+                cfg.egress_url,
+                cfg.egress_dir,
+                interval_s=cfg.egress_interval_s,
+                timeout_s=cfg.egress_timeout_s,
+                max_backlog_mb=cfg.egress_max_backlog_mb,
+                max_backlog_age_s=cfg.egress_max_backlog_age_s,
+                breaker=egress_breaker,
+                # Label-less self-series (tpu_exporter_up) must not collide
+                # across hosts in the shared receiving TSDB; series that
+                # already carry topology labels keep theirs.
+                extra_labels={
+                    "host": t["host"],
+                    "slice_name": t["slice_name"],
+                },
+            )
+            self.shipper.load()
         # Resource-pressure governor (tpu_pod_exporter_torch.pressure): explicit
         # degradation ladders for disk (--state-max-disk-mb + reported
         # ENOSPC over the persist WAL/checkpoint and egress send buffer)
@@ -544,6 +598,25 @@ class ExporterApp:
             }
         if self.history is not None:
             out["history"] = self.history.stats()
+        if self.persister is not None:
+            from tpu_pod_exporter_torch.persist import state_dir_summary
+
+            out["persist"] = {
+                **self.persister.stats(),
+                # Nested, not splatted: restore-time counts (wal_records,
+                # errors) would otherwise shadow the live writer counters
+                # under the same names.
+                "restore": dict(self.persister.restored_info),
+                "dir": state_dir_summary(self.cfg.state_dir),
+                "warm": self._warm_state() is not None,
+            }
+        if self.shipper is not None:
+            from tpu_pod_exporter_torch.egress import egress_dir_summary
+
+            out["egress"] = {
+                **self.shipper.stats(),
+                "dir": egress_dir_summary(self.cfg.egress_dir),
+            }
         if self.governor is not None:
             out["pressure"] = {
                 **self.governor.stats(),

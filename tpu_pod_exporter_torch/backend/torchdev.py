@@ -16,11 +16,14 @@ Readings for each visible device ``i``:
 - utilization: ``None``, as in the JAX backend.
 
 Identity matches the NVML backend's, so the podresources join key is the
-same: ``device_path=/dev/nvidia{i}``, ``device_ids=("GPU-<uuid>", str(i))``,
-``device_kind`` the device name, ``family="gpu"``. Under
-``CUDA_VISIBLE_DEVICES`` the torch index ``i`` is not the ``/dev/nvidiaN``
-minor number; the UUID stays right, the path does not. The NVML backend
-(``backend/nvml.py``) names the node by its minor number.
+same: ``device_ids=("GPU-<uuid>", str(i))``, ``device_kind`` the device
+name, ``family="gpu"``. The device node is the one the NVML backend
+(``backend/nvml.py``) names: ``/dev/nvidia<minor>``, with the minor read
+from NVML for the card's UUID. The torch index is not the minor: a
+container given one card of a larger host sees it as index 0 while its
+node keeps the host's minor. Where ``libnvidia-ml.so.1`` does not load, or
+NVML cannot name the card, ``device_path`` is ``""``, as the JAX package's
+in-process backend publishes it; the index is never published as a node.
 
 No CUDA raises :class:`BackendError` at construction. A device whose
 memory stats raise gets ``None`` HBM plus a partial error, so the collector
@@ -40,6 +43,8 @@ from tpu_pod_exporter_torch.backend import (
     DeviceBackend,
     HostSample,
 )
+from tpu_pod_exporter_torch.backend.nvml import NvmlDriverError
+from tpu_pod_exporter_torch.backend.nvml_ctypes import CtypesNvmlDriver
 
 log = logging.getLogger("tpu_pod_exporter_torch.backend.torchdev")
 
@@ -50,17 +55,54 @@ def _nvml_uuid(uuid: object) -> str:
     return text if text.startswith("GPU-") else f"GPU-{text}"
 
 
+def nvml_minors(driver=None) -> dict[str, int]:
+    """{NVML UUID: minor number} of every card NVML lists; {} where
+    ``libnvidia-ml.so.1`` does not load or a call fails (a partial map
+    could misname a card). ``driver`` replaces the ctypes binding (any
+    object with its NVML calls)."""
+    try:
+        if driver is None:
+            driver = CtypesNvmlDriver()
+        driver.nvmlInit()
+    except (BackendError, NvmlDriverError) as e:
+        log.info("NVML unavailable, device nodes unnamed: %s", e)
+        return {}
+    try:
+        handles = map(driver.nvmlDeviceGetHandleByIndex,
+                      range(driver.nvmlDeviceGetCount()))
+        return {driver.nvmlDeviceGetUUID(h): driver.nvmlDeviceGetMinorNumber(h)
+                for h in handles}
+    except NvmlDriverError as e:
+        log.warning("NVML could not list the device nodes: %s", e)
+        return {}
+    finally:
+        try:
+            driver.nvmlShutdown()
+        except NvmlDriverError as e:
+            log.warning("nvmlShutdown failed: %s", e)
+
+
 class TorchCudaBackend(DeviceBackend):
     name = "torch"
     family = "gpu"
 
-    def __init__(self) -> None:
+    def __init__(self, nvml_driver=None) -> None:
         if not torch.cuda.is_available():
             raise BackendError(
                 "no CUDA device is visible to torch "
                 f"(torch {torch.__version__}, CUDA build {torch.version.cuda})"
             )
         self._identity: dict[int, tuple[str, str]] = {}
+        self._nvml_driver = nvml_driver
+        self._minors: dict[str, int] | None = None
+
+    def _device_path(self, uuid: str) -> str:
+        """``/dev/nvidia<minor>`` of the card with this UUID, "" when NVML
+        does not name it (the map is read from NVML once)."""
+        if self._minors is None:
+            self._minors = nvml_minors(self._nvml_driver)
+        minor = self._minors.get(uuid)
+        return "" if minor is None else f"/dev/nvidia{minor}"
 
     def _identify(self, i: int) -> tuple[str, str]:
         """(device name, NVML-form UUID) of device ``i``, read once."""
@@ -95,9 +137,8 @@ class TorchCudaBackend(DeviceBackend):
                 ChipSample(
                     info=ChipInfo(
                         chip_id=i,
-                        # The torch index, which is the /dev/nvidiaN minor
-                        # only when CUDA_VISIBLE_DEVICES is unset.
-                        device_path=f"/dev/nvidia{i}",
+                        # NVML's minor for this UUID; never the torch index.
+                        device_path=self._device_path(uuid) if uuid else "",
                         device_ids=(uuid, str(i)) if uuid else (str(i),),
                         device_kind=kind,
                         family="gpu",

@@ -190,9 +190,81 @@ class ProcScanner:
         return found
 
     def _native_full_scan(self) -> dict[int, tuple[DeviceHolder, ...]] | None:
-        """The native /proc walk (libtpumon) is not carried by this package:
-        None, so the Python walk runs."""
-        return None
+        """Walk /proc via libtpumon (the O(processes × fds) readlink loop is
+        the scan's entire cost on a busy node). Returns None when the native
+        library is unavailable or disagrees structurally — the Python walk is
+        always a correct fallback. Per-holder cgroup identity is read here in
+        Python: holders are few, the walk is what's hot."""
+        from tpu_pod_exporter_torch import nativelib
+
+        lib = nativelib.load()
+        if lib is None:
+            return None
+        if len(self._prefixes) > 16:
+            # tpumon_scan_proc matches at most 16 prefixes; beyond that the
+            # native scan would silently miss holders — refuse it instead.
+            return None
+        prefixes = "\n".join(self._prefixes).encode()
+        root = self._proc_root.encode()
+        cap = 64 * 1024
+        import ctypes
+
+        while True:
+            buf = ctypes.create_string_buffer(cap)
+            n = lib.tpumon_scan_proc(root, prefixes, buf, cap)
+            if n < 0:
+                if not os.path.isdir(self._proc_root):
+                    raise ProcScanError(
+                        f"proc root {self._proc_root!r} unreadable"
+                    )
+                # Readable root but native scan refused: fall back.
+                return None
+            # Split on '\n' ONLY: splitlines() also breaks on \r/\v/\f/U+0085,
+            # which can legally appear inside a comm and would desync the
+            # record-count handshake below.
+            records = [
+                r for r in buf.value.decode("utf-8", errors="replace").split("\n") if r
+            ]
+            if len(records) == n:
+                break
+            if cap >= 16 * 1024 * 1024:
+                # Still truncated at the ceiling: a partial holder set must
+                # not masquerade as the full one (dropped holders would
+                # vanish from metrics AND from the verify cache) — let the
+                # unbounded Python walk take over.
+                return None
+            cap *= 4  # truncated: grow and rescan
+        by_pid: dict[int, list[str]] = {}
+        comms: dict[int, str] = {}
+        for rec in records:
+            parts = rec.split("\t")
+            if len(parts) != 3 or not parts[0].isdigit():
+                continue
+            if not _is_device(parts[1], self._prefixes):
+                # The native walk is a pure prefix matcher; the exclusion
+                # rule and the GPU card-node rule live here so Python and
+                # native scans agree.
+                continue
+            pid = int(parts[0])
+            by_pid.setdefault(pid, []).append(parts[1])
+            comms[pid] = parts[2]
+        found: dict[int, tuple[DeviceHolder, ...]] = {}
+        for pid, paths in by_pid.items():
+            base = os.path.join(self._proc_root, str(pid))
+            pod_uid, container_id = parse_cgroup_identity(
+                self._read_text(os.path.join(base, "cgroup"))
+            )
+            found[pid] = tuple(
+                DeviceHolder(
+                    pid=pid,
+                    comm=comms[pid],
+                    device_path=dp,
+                    pod_uid=pod_uid,
+                    container_id=container_id,
+                )
+                for dp in sorted(set(paths))
+            )
+        return found
 
     def _scan_pid(self, pid: int) -> tuple[DeviceHolder, ...]:
         """One process's device-file holds; () on any per-process failure
