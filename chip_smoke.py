@@ -82,6 +82,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                receiver's ledger has no gap and no re-sent batch and agrees
                with that history, and three injected NVML errors are counted
                and recovered from.
+14. fleet     — the fleet plane over the card's node under the 16 GiB fill and
+               the full-size burn: the port's exporter on the card (NVML,
+               process scan, checkpoint attribution) and fifteen simulated
+               8-card nodes (16 hosts, 121 cards in two pools) scraped by a
+               flat aggregator (stream on, rounds recorded) and by two shard
+               leaves under a root (store with a recording rule, one alert
+               rule, a webhook to an in-process receiver) and a replica, all
+               subprocesses of the port; the pool's slice HBM rises by the
+               node's rise and falls, chip and host counts, fleet sums and the
+               pod's workload rollup hold, no TPU-family series appears; the
+               root's rollups equal the flat aggregator's, both leaves up, the
+               replica serves them; the root's stream sends a snapshot, then
+               deltas with consecutive seqs, one at the filled level; the
+               store holds the idle, filled and released levels; the alert
+               goes pending, firing, resolved, with webhook seqs 1 and 2;
+               ``status --tree`` and ``status`` on the node exit 0 and show
+               121 cards, the firing alert and the card; every tier exits 0
+               on SIGTERM. Prints the round times, the stream's lag, the
+               alert's latency and each process's CPU and RSS.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -192,6 +211,34 @@ NODE_STATE_RUN_INTERVAL_S = 0.25
 NODE_STATE_KILL_AT = 16
 NODE_STATE_ERRORS_AT = 12
 POLL_PHASES = ("device_read", "process_scan", "attribution", "publish", "total")
+# The fleet phase: the real node and FLEET_HOSTS_PER_POOL * 2 - 1 simulated
+# ones (FLEET_SIM_GPUS cards each) in two pools, every tier at this interval;
+# at least FLEET_IDLE_ROUNDS idle root rounds, FLEET_LOAD_S under the fill
+# and the burn, FLEET_RELEASE_S after; the tiers scraped every
+# FLEET_OBSERVE_S. The store keeps 0.5 s buckets, so the run's levels stay
+# apart in it.
+FLEET_INTERVAL_S = 0.5
+FLEET_POOLS = ("h100-pool-a", "h100-pool-b")
+FLEET_REAL_NODE = ("node-00", "h100-pool-a")
+FLEET_HOSTS_PER_POOL = 8
+FLEET_SIM_GPUS = 8
+FLEET_ACCELERATOR = "nvidia-h100-80gb"
+FLEET_IDLE_ROUNDS = 3
+FLEET_LOAD_S = 10.0
+FLEET_RELEASE_S = 5.0
+FLEET_OBSERVE_S = 0.1
+FLEET_STORE_TIERS = "0.5:720,10:360"
+FLEET_STORE_METRIC = "h100:hbm:by_slice"
+FLEET_STORE_RULE = (f"{FLEET_STORE_METRIC} = "
+                    'sum(tpu_slice_hbm_used_bytes{family="gpu"}) by (slice_name)')
+FLEET_ALERT = "H100PoolHbmFilled"
+FLEET_ALERT_RULE = (
+    f"alert {FLEET_ALERT} = "
+    'tpu_slice_hbm_used_bytes{{family="gpu",slice_name="{pool}"}} > {threshold}\n'
+    "    for 1s\n"
+    '    labels(severity="info")\n'
+    '    annotations(summary="{{{{ $labels.slice_name }}}} HBM above {threshold} B")\n')
+FLEET_STREAM = ("tpu_slice_hbm_used_bytes", 30.0)  # metric, window (s)
 
 
 def emit(phase: str, **fields) -> None:
@@ -903,9 +950,10 @@ def http_get(url: str, timeout: float = 5.0) -> tuple[int, bytes]:
         return e.code, e.read()
 
 
-def wait_for(predicate, timeout_s: float, what: str, interval_s: float = 0.05):
+def wait_for(predicate, timeout_s: float, what: str, interval_s: float = 0.05,
+             phase: str = "node state"):
     """Poll ``predicate`` until it returns a true value; raise naming
-    ``what`` when ``timeout_s`` passes first."""
+    ``phase`` and ``what`` when ``timeout_s`` passes first."""
     deadline = time.monotonic() + timeout_s
     while True:
         try:
@@ -915,7 +963,7 @@ def wait_for(predicate, timeout_s: float, what: str, interval_s: float = 0.05):
         if got:
             return got
         if time.monotonic() > deadline:
-            raise AssertionError(f"node state: {what} within {timeout_s:g} s")
+            raise AssertionError(f"{phase}: {what} within {timeout_s:g} s")
         time.sleep(interval_s)
 
 
@@ -1267,6 +1315,590 @@ def phase_node_state(dev, tm, hwcheck, uuid: str, libtpumon: Path) -> dict:
     return by_kernel
 
 
+class WebhookReceiver:
+    """An in-process alert webhook: keeps each POST's receipt time,
+    ``X-Tpe-Alert-Seq`` header and JSON body, and answers 200."""
+
+    def __init__(self) -> None:
+        import http.server
+        import threading
+
+        received = self.received = []
+        lock = self.lock = threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self) -> None:  # noqa: N802 — http.server's casing
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                with lock:
+                    received.append({"wall": time.time(),
+                                     "seq": self.headers.get("X-Tpe-Alert-Seq"),
+                                     "body": json.loads(body or b"{}")})
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args) -> None:
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/alerts"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def start(self) -> None:
+        self.thread.start()
+
+    def stop(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+    def posts(self) -> list:
+        with self.lock:
+            return list(self.received)
+
+
+class SseReader:
+    """The port's stream client read on a thread: each frame with its
+    receipt time. ``stop`` ends the read and closes the stream."""
+
+    def __init__(self, port: int, metric: str, window_s: float) -> None:
+        import threading
+
+        from tpu_pod_exporter_torch.stream import QueryShape, StreamClient
+
+        self.frames: list = []
+        self.client = StreamClient("127.0.0.1", port, QueryShape(
+            route="window_stats", metric=metric, window_s=window_s))
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        while not self.done.is_set() and not self.client.eof:
+            for frame in self.client.frames(timeout_s=0.2):
+                self.frames.append((time.time(), frame))
+
+    def stop(self) -> list:
+        self.done.set()
+        self.thread.join(timeout=10)
+        self.client.close()
+        return self.frames
+
+
+def proc_usage(pid: int) -> tuple[float, float]:
+    """(user + system CPU seconds, resident bytes) of a live process, from
+    /proc/<pid>/stat and /proc/<pid>/status."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    cpu_s = (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+    rss = 0.0
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = float(line.split()[1]) * 1024
+    return cpu_s, rss
+
+
+def parsed(body: bytes) -> list:
+    from tpu_pod_exporter_torch.metrics.parse import parse_exposition
+
+    return list(parse_exposition(body.decode()))
+
+
+def rollups(rows: list, prefixes=("tpu_slice_", "tpu_fleet_family_")) -> dict:
+    """{(name, sorted labels): value} of the parsed samples whose name starts
+    with one of ``prefixes``."""
+    return {(s.name, tuple(sorted(s.labels.items()))): s.value
+            for s in rows if s.name.startswith(prefixes)}
+
+
+def pick(table: dict, name: str, **labels) -> float | None:
+    """The one value of ``name`` in a ``rollups`` table whose labels include
+    ``labels``; None when there is none."""
+    hits = [v for (n, lab), v in table.items()
+            if n == name and all(dict(lab).get(k) == x for k, x in labels.items())]
+    if len(hits) > 1:
+        raise AssertionError(f"fleet: {len(hits)} series of {name}{labels}")
+    return hits[0] if hits else None
+
+
+def nearest_rank_ms(values: list) -> dict:
+    """p50 and p99 (nearest rank) in ms of durations in seconds."""
+    ordered = sorted(values)
+    return {"rounds": len(ordered), **{
+        f"p{round(q * 100)}_ms": ordered[math.ceil(q * len(ordered)) - 1] * 1e3
+        for q in (0.5, 0.99)}}
+
+
+def fleet_node_argv(port: int, kubelet: dict) -> list:
+    """The real node of phase 14: the port's exporter on the card through
+    NVML, with the process scan and checkpoint attribution."""
+    node, pool = FLEET_REAL_NODE
+    return [sys.executable, "-m", "tpu_pod_exporter_torch", "--host", "127.0.0.1",
+            "--port", str(port), "--interval-s", str(FLEET_INTERVAL_S),
+            "--log-level", "warning", "--backend", "nvml", "--process-metrics",
+            "--attribution", "checkpoint", "--checkpoint-path", kubelet["checkpoint_path"],
+            "--uid-map-file", kubelet["uid_map_file"], "--slice-name", pool,
+            "--node-name", node, "--accelerator", FLEET_ACCELERATOR]
+
+
+def fleet_status_node_argv(kubelet: dict) -> list:
+    """``status`` in node mode on the card, as an operator runs it there."""
+    return [sys.executable, "-m", "tpu_pod_exporter_torch.status", "--backend", "nvml",
+            "--process-metrics", "--attribution", "checkpoint",
+            "--checkpoint-path", kubelet["checkpoint_path"],
+            "--uid-map-file", kubelet["uid_map_file"], "--json"]
+
+
+# Phase 14's simulated nodes in one process: the port's ExporterApp on the
+# simulated NVML driver, FLEET_SIM_GPUS cards each. Prints the ports as one
+# JSON line, serves until SIGTERM, then stops every app and exits 0.
+SIM_NODES_CODE = """
+import json, signal, sys, threading
+from tpu_pod_exporter_torch.app import ExporterApp
+from tpu_pod_exporter_torch.config import ExporterConfig
+nodes, gpus, accelerator, interval = json.loads(sys.argv[1])
+done = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: done.set())
+apps = []
+for node, pool in nodes:
+    app = ExporterApp(ExporterConfig(
+        port=0, host="127.0.0.1", backend="nvml", nvml_sim_gpus=gpus,
+        attribution="none", slice_name=pool, node_name=node,
+        accelerator=accelerator, interval_s=interval, log_level="warning"))
+    app.start()
+    apps.append(app)
+print(json.dumps([app.port for app in apps]), flush=True)
+done.wait()
+for app in apps:
+    app.stop()
+"""
+
+
+def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
+    """Phase 14 under the full-size load held by this process: the real
+    node and fifteen simulated ones, scraped by a flat aggregator and by a
+    two-leaf shard tree whose root keeps a store, evaluates an alert and
+    serves a stream, beside a replica; ``status`` over the tree and on the
+    node. Returns the launches by kernel of its load."""
+    import signal
+    import tempfile
+
+    t_phase = time.monotonic()
+    node_name, pool_a = FLEET_REAL_NODE
+    pool_b = next(p for p in FLEET_POOLS if p != pool_a)
+    sim_nodes = [(f"node-{i:02d}", pool_a if i < FLEET_HOSTS_PER_POOL else pool_b)
+                 for i in range(1, 2 * FLEET_HOSTS_PER_POOL)]
+    cards = {pool_a: 1 + (FLEET_HOSTS_PER_POOL - 1) * FLEET_SIM_GPUS,
+             pool_b: FLEET_HOSTS_PER_POOL * FLEET_SIM_GPUS}
+    tmp = tempfile.TemporaryDirectory()
+    procs: dict = {}
+    logs: dict = {}
+
+    def spawn(name: str, argv: list, stdout=None) -> subprocess.Popen:
+        logs[name] = Path(tmp.name, f"{name}.log")
+        with open(logs[name], "wb") as log:
+            procs[name] = subprocess.Popen(argv, cwd=REPO, stdout=stdout or log, stderr=log)
+        return procs[name]
+
+    def fail(msg: str):
+        tails = {name: path.read_text(errors="replace")[-1500:]
+                 for name, path in logs.items() if path.exists()}
+        raise AssertionError(f"fleet: {msg}\nlogs: {json.dumps(tails, indent=1)}")
+
+    def tier(module: str, port: int, *args: str) -> list:
+        return [sys.executable, "-m", f"tpu_pod_exporter_torch.{module}", "--host",
+                "127.0.0.1", "--port", str(port), "--interval-s", str(FLEET_INTERVAL_S),
+                "--log-level", "warning", *args]
+
+    def metrics(port: int) -> bytes:
+        status, body = http_get(f"http://127.0.0.1:{port}/metrics")
+        if status != 200:
+            raise OSError(f"/metrics on {port} answered {status}")
+        return body
+
+    def usage_now() -> dict:
+        return {"t": time.time(),
+                "procs": {name: proc_usage(proc.pid) for name, proc in procs.items()}}
+
+    reset_counts(tm)
+    stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
+                                 batch=BATCH, iters=ITERS, device=dev)
+    receiver = WebhookReceiver()
+    receiver.start()  # before the try: its stop() waits for a started server
+    stream = None
+    try:
+        kubelet = kubelet_fixture(tmp.name, uuid)
+        # The nodes: the real one on the card, the simulated ones in a helper.
+        node_port = free_port()
+        spawn("node", fleet_node_argv(node_port, kubelet))
+        helper = spawn("sim_nodes", [sys.executable, "-c", SIM_NODES_CODE, json.dumps(
+            [sim_nodes, FLEET_SIM_GPUS, FLEET_ACCELERATOR, FLEET_INTERVAL_S])],
+            stdout=subprocess.PIPE)
+        sim_ports = json.loads(helper.stdout.readline() or "null")
+        if not sim_ports:
+            fail("the simulated nodes did not start")
+        sim_targets = {f"127.0.0.1:{port}": node for port, node in zip(sim_ports, sim_nodes)}
+        node_target = f"127.0.0.1:{node_port}"
+        targets = ",".join([node_target, *sim_targets])
+        node_body = wait_for(lambda: metrics(node_port), 30, "the real node's /metrics",
+                             phase="fleet")
+        node_rows = samples_of(node_body, "gpu_hbm_used_bytes")
+        held = held_card_nodes()
+        if len(node_rows) != 1 or {node_rows[0].labels["device_path"]} != held:
+            fail(f"the real node serves {[r.labels for r in node_rows]}; "
+                 f"this process holds {sorted(held)}")
+        emit("fleet_setup", real_node={"target": node_target, "node": node_name,
+                                       "pool": pool_a, "backend": "nvml",
+                                       "device_path": node_rows[0].labels["device_path"]},
+             simulated_nodes={target: {"node": n, "pool": p, "cards": FLEET_SIM_GPUS,
+                                       "backend": "nvml simulated"}
+                              for target, (n, p) in sim_targets.items()},
+             hosts=1 + len(sim_nodes), cards=sum(cards.values()))
+
+        # The flat aggregator first: its idle pool level sets the alert's threshold.
+        flat_port, record = free_port(), Path(tmp.name, "rounds.jsonl")
+        spawn("aggregate", tier("aggregate", flat_port, "--targets", targets,
+                                "--stream", "on", "--record-to", str(record)))
+
+        def flat_full():
+            table = rollups(parsed(metrics(flat_port)))
+            hosts = [pick(table, "tpu_slice_hosts_reporting", family="gpu", slice_name=p)
+                     for p in FLEET_POOLS]
+            return table if hosts == [FLEET_HOSTS_PER_POOL] * len(FLEET_POOLS) else None
+
+        idle_a = pick(wait_for(flat_full, 30, "the flat aggregator over every host",
+                               phase="fleet"),
+                      "tpu_slice_hbm_used_bytes", family="gpu", slice_name=pool_a)
+        threshold = idle_a + FILL_BYTES / 2
+        rules, alerts = Path(tmp.name, "store.rules"), Path(tmp.name, "alert.rules")
+        rules.write_text(FLEET_STORE_RULE + "\n")
+        alerts.write_text(FLEET_ALERT_RULE.format(pool=pool_a, threshold=f"{threshold:.0f}"))
+
+        # The shard tree: two leaves, the root with store and alerting, a replica.
+        leaf_ports = [free_port(), free_port()]
+        for i, port in enumerate(leaf_ports):
+            spawn(f"leaf{i}", tier("shard", port, "--role", "leaf", "--shard-index", str(i),
+                                   "--num-shards", "2", "--targets", targets))
+        leaves = ",".join(f"shard-{i}=127.0.0.1:{p}" for i, p in enumerate(leaf_ports))
+        root_port, replica_port = free_port(), free_port()
+        store_dir, alert_dir = Path(tmp.name, "store"), Path(tmp.name, "alerts")
+        spawn("root", tier("shard", root_port, "--role", "root", "--leaves", leaves,
+                           "--store-dir", str(store_dir), "--store-tiers", FLEET_STORE_TIERS,
+                           "--store-rules", str(rules), "--alert-rules", str(alerts),
+                           "--alert-dir", str(alert_dir),
+                           "--alert-webhook-url", receiver.url))
+        spawn("replica", tier("shard", replica_port, "--role", "replica", "--leaves", leaves,
+                              "--root-url", f"127.0.0.1:{root_port}"))
+
+        def root_full():
+            table = rollups(parsed(metrics(root_port)))
+            chips = {p: pick(table, "tpu_slice_chip_count", family="gpu", slice_name=p)
+                     for p in FLEET_POOLS}
+            return table if chips == cards else None
+
+        wait_for(root_full, 30, "the root over both leaves", phase="fleet")
+        wait_for(lambda: rollups(parsed(metrics(replica_port))), 30, "the replica's rollups",
+                 phase="fleet")
+        stream = SseReader(root_port, *FLEET_STREAM)
+
+        # Each observation scrapes the flat aggregator, the root and the
+        # replica, and keeps each tier's round duration by round timestamp.
+        seen: dict = {"idle": [], "load": [], "release": []}
+        rounds: dict = {"flat": {}, "root": {}}
+        alert_states: list = []
+
+        def observe(stage: str) -> dict:
+            now = time.time()
+            flat_rows, root_rows = parsed(metrics(flat_port)), parsed(metrics(root_port))
+            obs = {"t": now, "flat": rollups(flat_rows), "root": rollups(root_rows),
+                   "replica": rollups(parsed(metrics(replica_port)),
+                                      ("tpu_slice_", "tpu_fleet_family_", "tpu_replica_info")),
+                   "workload": {(s.labels.get("pod"), s.labels.get("slice_name")): s.value
+                                for s in flat_rows if s.name == "tpu_workload_hbm_used_bytes"},
+                   "leaf_up": {s.labels["leaf"]: s.value
+                               for s in root_rows if s.name == "tpu_root_leaf_up"},
+                   "tpu_family": sorted({s.name for s in flat_rows + root_rows
+                                         if s.labels.get("family") == "tpu"})}
+            for who, rows, prefix in (("flat", flat_rows, "tpu_aggregator"),
+                                      ("root", root_rows, "tpu_root")):
+                one = {s.name: s.value for s in rows if s.name in (
+                    f"{prefix}_last_round_timestamp_seconds", f"{prefix}_round_duration_seconds")}
+                if len(one) == 2:
+                    rounds[who][one[f"{prefix}_last_round_timestamp_seconds"]] = \
+                        one[f"{prefix}_round_duration_seconds"]
+            gauges = {s.name: s.value for s in root_rows
+                      if s.name in ("tpu_root_alerts_firing", "tpu_root_alerts_pending")}
+            obs["alert"] = ("firing" if gauges.get("tpu_root_alerts_firing") else
+                            "pending" if gauges.get("tpu_root_alerts_pending") else "inactive")
+            if not alert_states or alert_states[-1][1] != obs["alert"]:
+                alert_states.append((now, obs["alert"]))
+            seen[stage].append(obs)
+            return obs
+
+        # 1. At least FLEET_IDLE_ROUNDS idle rounds of the root over the whole fleet.
+        t0 = time.time()
+        usage = {"idle": usage_now()}
+        first_round = max(rounds["root"], default=0.0)
+        while True:
+            observe("idle")
+            if sum(t > first_round for t in rounds["root"]) >= FLEET_IDLE_ROUNDS + 1:
+                break
+            if time.time() - t0 > 30:
+                fail(f"{len(rounds['root'])} root rounds in 30 s")
+            time.sleep(FLEET_OBSERVE_S)
+
+        # 2. The fill and the burn: at least FLEET_LOAD_S, until the alert fired.
+        usage["fill"] = usage_now()
+        t_fill = time.time()
+        stim.start()
+        status_tree = status_node = None
+        while True:
+            obs = observe("load")
+            if obs["alert"] == "firing" and status_tree is None:
+                status_tree = subprocess.run(
+                    [sys.executable, "-m", "tpu_pod_exporter_torch.status", "--tree",
+                     f"127.0.0.1:{root_port}", "--store-dir", str(store_dir),
+                     "--alert-dir", str(alert_dir), "--json"],
+                    cwd=REPO, capture_output=True, text=True, timeout=60)
+                status_node = subprocess.run(fleet_status_node_argv(kubelet), cwd=REPO,
+                                             capture_output=True, text=True, timeout=60)
+            if status_tree is not None and time.time() - t_fill >= FLEET_LOAD_S:
+                break
+            if time.time() - t_fill > FLEET_LOAD_S + 30:
+                fail(f"the alert did not fire under the fill: {alert_states}")
+            time.sleep(FLEET_OBSERVE_S)
+
+        # 3. Release; idle for at least FLEET_RELEASE_S, until the alert resolved.
+        usage["release"] = usage_now()
+        t_release = time.time()
+        stim.stop()
+        while True:
+            obs = observe("release")
+            released = pick(obs["flat"], "tpu_slice_hbm_used_bytes", family="gpu",
+                            slice_name=pool_a)
+            if (time.time() - t_release >= FLEET_RELEASE_S and obs["alert"] == "inactive"
+                    and released is not None and released < threshold):
+                break
+            if time.time() - t_release > FLEET_RELEASE_S + 30:
+                fail(f"no release in 30 s: pool a at {released}, alert {alert_states}")
+            time.sleep(FLEET_OBSERVE_S)
+        t_end = time.time()
+        # The node exporter's own poll phases, with the burn in another
+        # process (phase 13 ran the exporter beside the burn thread).
+        buckets = phase_buckets(metrics(node_port))
+        node_poll = {phase: {f"p{round(q * 100)}_ms": 1e3 * bucket_quantile(q, buckets[phase])
+                             for q in (0.5, 0.99)}
+                     for phase in POLL_PHASES if phase in buckets}
+        node_poll["polls"] = buckets.get("total", {}).get(math.inf)
+        root = f"http://127.0.0.1:{root_port}"
+        store_answer = json.loads(http_get(
+            f"{root}/api/v1/query_range?metric={FLEET_STORE_METRIC}&source=store"
+            f"&start={t0 - 5:.3f}&end={t_end + 1:.3f}")[1])
+        node_history = json.loads(http_get(
+            f"http://127.0.0.1:{node_port}/api/v1/query_range?metric=gpu_hbm_used_bytes"
+            f"&start={t0 - 5:.3f}&end={t_end + 1:.3f}")[1])["data"]["result"]
+        readyz = json.loads(http_get(f"{root}/readyz")[1])
+        transitions = {s.labels.get("to"): s.value
+                       for s in samples_of(metrics(root_port), "tpu_root_alert_transitions_total")}
+        wait_for(lambda: len(receiver.posts()) >= 2, 10, "the resolved notification", phase="fleet")
+        frames = stream.stop()
+        stream = None
+
+        # Every tier drains on SIGTERM and exits 0; then the nodes.
+        exits = {}
+        for name in ("replica", "root", "leaf0", "leaf1", "aggregate", "node", "sim_nodes"):
+            procs[name].send_signal(signal.SIGTERM)
+            try:
+                exits[name] = procs[name].wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                exits[name] = None
+        posts = receiver.posts()
+
+        # ------------------------------------------------------------ checks
+        # 1. The flat aggregator.
+        def levels(stage: str, who: str = "flat") -> list:
+            return [v for v in (pick(o[who], "tpu_slice_hbm_used_bytes", family="gpu",
+                                     slice_name=pool_a) for o in seen[stage]) if v is not None]
+
+        idle_level, load_level = levels("idle")[-1], max(levels("load"))
+        released_level = levels("release")[-1]
+        # The node's reading in the round whose pool-a sum the aggregator
+        # published, from the aggregator's own round record.
+        pool_a_targets = [node_target] + [t for t, (_, p) in sim_targets.items() if p == pool_a]
+        node_by_sum: dict = {}
+        for line in record.read_text().splitlines():
+            bodies = json.loads(line)["bodies"]
+            if any(bodies.get(t) is None for t in pool_a_targets):
+                continue
+            used = {t: sum(s.value for s in samples_of(bodies[t].encode(), "gpu_hbm_used_bytes"))
+                    for t in pool_a_targets}
+            node_by_sum.setdefault(sum(used.values()), set()).add(used[node_target])
+        node_at = {level: sorted(node_by_sum.get(level, ())) for level in (idle_level, load_level)}
+        if any(len(v) != 1 for v in node_at.values()):
+            fail(f"pool a's published levels and the node's in the round record: {node_at}")
+        last = seen["load"][-1]
+        flat = {"idle": idle_level, "load_max": load_level, "released": released_level,
+                "rise": load_level - idle_level, "fall": load_level - released_level,
+                "node_rise_same_round": node_at[load_level][0] - node_at[idle_level][0],
+                "recorded_rounds": len(record.read_text().splitlines()),
+                "chips": {p: pick(last["flat"], "tpu_slice_chip_count", family="gpu",
+                                  slice_name=p) for p in FLEET_POOLS},
+                "hosts": {p: pick(last["flat"], "tpu_slice_hosts_reporting", family="gpu",
+                                  slice_name=p) for p in FLEET_POOLS}}
+        if flat["rise"] < FILL_BYTES or flat["fall"] < FILL_BYTES:
+            fail(f"pool a's slice HBM did not rise and fall by the fill: {flat}")
+        if flat["rise"] != flat["node_rise_same_round"]:
+            fail(f"pool a rose {flat['rise']} B, the node {flat['node_rise_same_round']} B")
+        if flat["chips"] != cards or set(flat["hosts"].values()) != {FLEET_HOSTS_PER_POOL}:
+            fail(f"slice chips {flat['chips']}, hosts {flat['hosts']}")
+        for obs in seen["idle"] + seen["load"] + seen["release"]:
+            for field in ("chip_count", "hbm_used_bytes", "hbm_total_bytes", "hosts_reporting"):
+                total = pick(obs["flat"], f"tpu_fleet_family_{field}", family="gpu")
+                pools = [pick(obs["flat"], f"tpu_slice_{field}", family="gpu", slice_name=p)
+                         for p in FLEET_POOLS]
+                if None in pools or total != sum(pools):
+                    fail(f"tpu_fleet_family_{field} {total}, the pools {pools}")
+            if obs["tpu_family"]:
+                fail(f"family=\"tpu\" series at a tier: {obs['tpu_family']}")
+        pod = [o["workload"].get((SMOKE_POD, pool_a)) for o in seen["idle"] + seen["load"]]
+        flat["pod_rise"] = max(v or 0.0 for v in pod) - (pod[len(seen["idle"]) - 1] or 0.0)
+        if flat["pod_rise"] < FILL_BYTES:
+            fail(f"tpu_workload_hbm_used_bytes{{pod={SMOKE_POD}}} rose {flat['pod_rise']} B")
+
+        # 2. The shard tree: observations where both tiers folded one reading.
+        every = seen["idle"] + seen["load"] + seen["release"]
+        equal = {stage: sum(o["flat"] == o["root"] for o in seen[stage]) for stage in seen}
+        filled_equal = sum(o["flat"] == o["root"] and (pick(
+            o["root"], "tpu_slice_hbm_used_bytes", family="gpu", slice_name=pool_a)
+            or 0.0) >= idle_level + FILL_BYTES for o in seen["load"])
+        tree = {"observations": {stage: len(v) for stage, v in seen.items()},
+                "equal": equal, "filled_equal": filled_equal, "leaf_up": last["leaf_up"],
+                "replica_equal": sum({k: v for k, v in o["replica"].items()
+                                      if k[0] != "tpu_replica_info"} == o["root"] for o in every),
+                "replica_info": [dict(k[1]) for k in last["replica"]
+                                 if k[0] == "tpu_replica_info"]}
+        if not equal["idle"] or not filled_equal:
+            fail(f"the root's rollups never equal the flat aggregator's: {tree}")
+        if sorted(last["leaf_up"].values()) != [1.0, 1.0]:
+            fail(f"tpu_root_leaf_up {last['leaf_up']}")
+        if not tree["replica_equal"] or not tree["replica_info"]:
+            fail(f"the replica does not serve the root's rollups: {tree}")
+
+        # 3. The stream: a snapshot, then deltas with consecutive seqs.
+        data = [(t, f) for t, f in frames if f["type"] != "heartbeat"]
+        seqs = [f.get("seq") for _, f in data]
+
+        def filled_row(row) -> bool:
+            return (row["labels"].get("slice_name") == pool_a
+                    and row["labels"].get("family") == "gpu"
+                    and (row.get("stats") or {}).get("last", 0.0) >= idle_level + FILL_BYTES)
+
+        filled = [t for t, f in data if f["type"] == "delta" and any(map(filled_row, f["changed"]))]
+        node_idle = node_at[idle_level][0]
+        node_points = [(t, v) for row in node_history for t, v in row["values"]]
+        first_filled_poll = min((t for t, v in node_points if v >= node_idle + FILL_BYTES),
+                                default=None)
+        stream_check = {"frames": len(frames), "types": sorted({f["type"] for _, f in frames}),
+                        "first": data[0][1]["type"] if data else None, "seq_first": seqs[:1],
+                        "seq_last": seqs[-1:], "filled_deltas": len(filled),
+                        "delta_lag_s": (filled[0] - first_filled_poll
+                                        if filled and first_filled_poll else None)}
+        if (not data or data[0][1]["type"] != "snapshot"
+                or any(f["type"] != "delta" for _, f in data[1:])
+                or seqs != list(range(seqs[0], seqs[0] + len(seqs)))):
+            fail(f"the stream's frames {stream_check}, seqs {seqs}")
+        if not filled or first_filled_poll is None:
+            fail(f"no delta carried pool a's filled level: {stream_check}")
+
+        # 4. The store: the idle, filled and released levels of pool a, in order.
+        rows = [r for r in store_answer.get("data", {}).get("result", ())
+                if r["labels"].get("slice_name") == pool_a]
+        values = [v for r in rows for _, v in r["values"]]
+        marks = [i for i, v in enumerate(values) if v >= idle_level + FILL_BYTES]
+        store = {"status": store_answer.get("status"), "source": store_answer.get("source"),
+                 "points": len(values), "filled_points": len(marks),
+                 "levels": sorted(set(values))}
+        if not (marks and any(v < threshold for v in values[:marks[0]])
+                and any(v < threshold for v in values[marks[-1]:])):
+            fail(f"the store's {FLEET_STORE_METRIC} for {pool_a}: {store}")
+
+        # 5. Alerting: pending, firing, resolved; contiguous webhook seqs.
+        states = [s for _, s in alert_states]
+        firing_post = next((p for p in posts if p["body"].get("state") == "firing"), None)
+        alerting = {"states": states, "transitions": transitions,
+                    "posts": [(p["seq"], p["body"].get("state")) for p in posts],
+                    "readyz": readyz.get("alerting"),
+                    "firing_after_fill_s": (firing_post["body"]["wall"] - t_fill
+                                            if firing_post else None),
+                    "webhook_after_fill_s": firing_post["wall"] - t_fill if firing_post else None}
+        if "pending" not in states or states[states.index("pending"):] != [
+                "pending", "firing", "inactive"]:
+            fail(f"the alert's states {alerting}")
+        if [(p["seq"], p["body"].get("state"), p["body"].get("alert")) for p in posts] != [
+                ("1", "firing", FLEET_ALERT), ("2", "resolved", FLEET_ALERT)]:
+            fail(f"the webhook's notifications {alerting}")
+        if (transitions.get("firing"), transitions.get("resolved")) != (1.0, 1.0) \
+                or not transitions.get("pending"):
+            fail(f"the root's transition counts {alerting}")
+        if (readyz.get("alerting") or {}).get("status") != "ok":
+            fail(f"the root's /readyz alerting {alerting}")
+
+        # 6. status over the tree while the alert fired, and on the node.
+        tree_doc = json.loads(status_tree.stdout) if status_tree.returncode == 0 else {}
+        node_doc = json.loads(status_node.stdout) if status_node.returncode == 0 else {}
+        card = [c for c in node_doc.get("chips", ()) if c["device_path"] in held]
+        status = {"tree_rc": status_tree.returncode, "node_rc": status_node.returncode,
+                  "tree_family_chips": tree_doc.get("fleet", {}).get("family_chips"),
+                  "tree_alerts": {k: tree_doc.get("alerts", {}).get(k)
+                                  for k in ("rules", "firing", "pending")},
+                  "node_chips": [{k: c.get(k) for k in ("device_path", "device_kind",
+                                                         "hbm_used_bytes", "pod", "holders")}
+                                 for c in node_doc.get("chips", ())]}
+        if status_tree.returncode != 0 or status_node.returncode != 0:
+            fail(f"status: {status}\n{status_tree.stderr[-1500:]}\n{status_node.stderr[-1500:]}")
+        if status["tree_family_chips"] != {"gpu": float(sum(cards.values()))} \
+                or status["tree_alerts"]["firing"] != 1:
+            fail(f"status --tree {status}")
+        if (len(card) != 1 or card[0]["hbm_used_bytes"] < FILL_BYTES
+                or os.getpid() not in [h["pid"] for h in card[0]["holders"]]):
+            fail(f"status on the node {status}")
+
+        # Every tier and both node processes drained: exit 0.
+        if any(rc != 0 for rc in exits.values()):
+            fail(f"exit codes on SIGTERM {exits}")
+    finally:
+        for proc in procs.values():  # first: nothing below may leave them running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        if stream is not None:
+            stream.stop()
+        receiver.stop()
+        stim.stop()
+        tmp.cleanup()
+
+    def cpu_and_rss(since: str, until: str) -> dict:
+        a, b = usage[since], usage[until]
+        return {name: {"cpu_s_per_s": (cpu - a["procs"][name][0]) / (b["t"] - a["t"]),
+                       "rss_bytes": rss} for name, (cpu, rss) in b["procs"].items()}
+
+    emit("fleet_rounds", flat=nearest_rank_ms(list(rounds["flat"].values())),
+         root=nearest_rank_ms(list(rounds["root"].values())))
+    emit("fleet_stream", **stream_check)
+    emit("fleet_alert", **alerting)
+    emit("fleet_processes", idle=cpu_and_rss("idle", "fill"), load=cpu_and_rss("fill", "release"),
+         clock_ticks_per_s=os.sysconf("SC_CLK_TCK"), node_poll_phase_ms=node_poll)
+    launches = tm.tanh_matmul.launches
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    emit("fleet", seconds=time.monotonic() - t_phase, burn_steps=stim.steps,
+         launches_by_kernel=by_kernel, flat=flat, tree=tree, store=store, status=status,
+         exits=exits, threshold=threshold, simulated_hosts=len(sim_nodes))
+    if launches <= 0:
+        raise AssertionError("no tanh_matmul launch during the fleet phase")
+    check_all_wgmma(tm, "fleet", launches)
+    return by_kernel
+
+
 def main() -> int:
     from tpu_pod_exporter_torch import hwcheck, nativelib
     from tpu_pod_exporter_torch.kernels import online_softmax as osm
@@ -1318,13 +1950,17 @@ def main() -> int:
     nvml = phase_nvml(dev, tm, hwcheck, uuid)
     torch.cuda.empty_cache()
     node_state = phase_node_state(dev, tm, hwcheck, uuid, libtpumon)
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(dev, tm, hwcheck, uuid)
 
     # Launches on the main paths: the closed loop, the training run, the
-    # collective programs, the NVML closed loop and the node state phase.
+    # collective programs, the NVML closed loop, the node state phase and
+    # the fleet phase.
     names = (*SOURCES, "sgd", "online_softmax")
     by_path = {kernel: {"closed_loop": closed_loop.get(kernel, 0),
                         "train": train.get(kernel, 0), "parallel": parallel[kernel],
-                        "nvml": nvml.get(kernel, 0), "node_state": node_state.get(kernel, 0)}
+                        "nvml": nvml.get(kernel, 0), "node_state": node_state.get(kernel, 0),
+                        "fleet": fleet.get(kernel, 0)}
                for kernel in names}
     kernels = [{
         "name": tm.ENTRIES[kernel],

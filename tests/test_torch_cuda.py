@@ -484,3 +484,39 @@ def test_native_library_builds_and_loads(dev, tmp_path):
     mine = native_walk.get(os.getpid(), ())
     assert mine == scanner._python_full_scan().get(os.getpid(), ())
     assert mine and all(h.device_path.startswith("/dev/nvidia") for h in mine)
+
+
+def test_flat_aggregator_folds_the_card_as_gpu_chips(dev):
+    from tpu_pod_exporter_torch.aggregate import SliceAggregator
+    from tpu_pod_exporter_torch.app import ExporterApp
+    from tpu_pod_exporter_torch.config import ExporterConfig
+    from tpu_pod_exporter_torch.metrics import SnapshotStore
+    from tpu_pod_exporter_torch.metrics.parse import parse_exposition
+
+    driver, _ = _nvml_card(dev)
+    try:
+        count = driver.nvmlDeviceGetCount()
+        total = sum(driver.nvmlDeviceGetMemoryInfo(driver.nvmlDeviceGetHandleByIndex(i))["total"]
+                    for i in range(count))
+    finally:
+        driver.nvmlShutdown()
+    app = ExporterApp(ExporterConfig(port=0, host="127.0.0.1", backend="nvml",
+                                     attribution="none", slice_name="h100-pool",
+                                     node_name="node-0", interval_s=0.5))
+    app.start()
+    try:
+        store = SnapshotStore()
+        agg = SliceAggregator((f"127.0.0.1:{app.port}",), store)
+        try:
+            agg.poll_once()
+        finally:
+            agg.close()
+    finally:
+        app.stop()
+    rows = {(s.name, s.labels.get("slice_name"), s.labels.get("family")): s.value
+            for s in parse_exposition(store.current().encode().decode())
+            if s.name.startswith("tpu_slice_")}
+    assert rows[("tpu_slice_chip_count", "h100-pool", "gpu")] == count
+    assert rows[("tpu_slice_hbm_total_bytes", "h100-pool", "gpu")] == total
+    assert rows[("tpu_slice_hosts_reporting", "h100-pool", "gpu")] == 1
+    assert {family for _, _, family in rows} == {"gpu"}

@@ -1,8 +1,7 @@
 """The port's remote-write egress held against the JAX package's.
 
 The cases of tests/test_egress.py run against ``tpu_pod_exporter_torch.egress``
-with the imports renamed, except the two status-footer cases, which need
-``status`` (not carried by the port yet). Then the two packages' shippers
+with the imports renamed. Then the two packages' shippers
 take the same snapshots and must frame the same batches and put the same
 remote-write payload bytes on the wire.
 """
@@ -928,6 +927,27 @@ class TestChaosRecvGrammar:
 
 
 class TestStatusFooter:
+    def test_egress_line_missing_dir(self, tmp_path):
+        from tpu_pod_exporter_torch.status import egress_line
+
+        line = egress_line("http://r/w", str(tmp_path / "nope"))
+        assert "missing" in line
+
+    def test_egress_line_renders_status(self, tmp_path):
+        from tpu_pod_exporter_torch.status import egress_line
+
+        (tmp_path / "egress-status.json").write_text(json.dumps({
+            "wall": time.time(), "breaker": "open",
+            "backlog_batches": 7, "backlog_bytes": 12345,
+            "last_send_latency_s": 0.01,
+            "last_send_ok_wall": time.time() - 5,
+            "last_error": "HTTP 503",
+        }))
+        line = egress_line("http://r/w", str(tmp_path))
+        assert "breaker open" in line
+        assert "7 batch(es)" in line
+        assert "HTTP 503" in line
+
     def test_dir_summary(self, tmp_path):
         b = WalBuffer(str(tmp_path))
         b.open()

@@ -21,14 +21,15 @@ REFERENCE = REPO / "tpu_pod_exporter"
 
 # Copied modules whose text equals the JAX package's after the rename.
 VERBATIM = (
-    "__main__.py", "attribution/__init__.py", "attribution/fake.py",
+    "__main__.py", "aggregate.py", "attribution/__init__.py",
+    "attribution/fake.py",
     "attribution/checkpoint.py", "attribution/podresources.py",
     "attribution/proto/__init__.py", "attribution/proto/podresources_pb2.py",
     "attribution/uidmap.py",
     "backend/__init__.py", "backend/fake.py", "chaos.py", "collector.py",
     "egress.py", "history.py",
     "metrics/__init__.py", "metrics/native.py", "metrics/parse.py",
-    "metrics/schema.py",
+    "metrics/schema.py", "shard.py",
     "supervisor.py", "topology.py", "utils.py", "version.py",
 )
 # Copied modules with a few lines changed beyond the rename:
@@ -56,7 +57,15 @@ EDITED = {
     "metrics/registry.py": (1, 1),  # comment: no history reference
     "pressure.py": (1, 1),          # docstring: no history reference
     "trace.py": (1, 1),             # docstring: no history reference
-    "server.py": (5, 7),            # stream import moved below the hub check
+    "server.py": (3, 3),            # docstring and comment: no history reference
+    # --process-metrics scans /dev/nvidia<minor> for a GPU backend, as app.py
+    # does (the reference walks /dev/accel and /dev/vfio whatever the backend).
+    "status.py": (1, 11),
+    # Docstrings: no history reference.
+    "stream.py": (1, 1),
+    "fleet.py": (1, 1),
+    "store.py": (4, 4),
+    "alerting.py": (5, 5),
 }
 
 
@@ -108,6 +117,10 @@ def test_entry_modules_load_no_jax():
         "import tpu_pod_exporter_torch.nativelib, tpu_pod_exporter_torch.metrics.native\n"
         "import tpu_pod_exporter_torch.persist, tpu_pod_exporter_torch.egress\n"
         "import tpu_pod_exporter_torch.chaos\n"
+        "import tpu_pod_exporter_torch.stream, tpu_pod_exporter_torch.fleet\n"
+        "import tpu_pod_exporter_torch.store, tpu_pod_exporter_torch.aggregate\n"
+        "import tpu_pod_exporter_torch.alerting, tpu_pod_exporter_torch.shard\n"
+        "import tpu_pod_exporter_torch.status\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -118,6 +131,9 @@ def test_entry_modules_load_no_jax():
     assert "tpu_pod_exporter_torch.loadgen.selftest" in added
     assert "tpu_pod_exporter_torch.backend.nvml_ctypes" in added
     assert "tpu_pod_exporter_torch.chaos" in added
+    for tier in ("stream", "fleet", "store", "aggregate", "alerting", "shard",
+                 "status"):
+        assert f"tpu_pod_exporter_torch.{tier}" in added
     assert [m for m in added if _forbidden(m)] == []
     # The card's path needs neither gRPC nor protobuf nor pynvml: the
     # kubelet podresources client loads them only when it is selected.

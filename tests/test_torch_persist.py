@@ -1,9 +1,7 @@
 """The port's persistence layer held against the JAX package's.
 
 The cases of tests/test_persist.py run against
-``tpu_pod_exporter_torch.persist`` with the imports renamed, except the two
-that need modules the port does not carry yet: the aggregator's breaker
-restore (``aggregate``) and the status footer (``status``). Then the two
+``tpu_pod_exporter_torch.persist`` with the imports renamed. Then the two
 packages share one state dir: what the JAX ``StatePersister`` writes, the
 port's restores as the same history series and values, and the reverse.
 One difference is pinned: from the WAL alone the JAX package restores GPU
@@ -630,6 +628,35 @@ class TestBreakerStateFile:
         path.write_text('["wrong shape"]')
         assert BreakerStateFile(str(path)).load() == {}
 
+    def test_aggregator_restores_quarantine(self, tmp_path):
+        from tpu_pod_exporter_torch.aggregate import SliceAggregator
+        from tpu_pod_exporter_torch.persist import BreakerStateFile
+
+        store_file = BreakerStateFile(str(tmp_path / "b.json"))
+
+        def dead_fetch(target, timeout_s):
+            raise ConnectionError("down")
+
+        agg = SliceAggregator(
+            ("t0:1",), SnapshotStore(), fetch=dead_fetch,
+            breaker_failures=2, breaker_backoff_s=30.0,
+            breaker_backoff_max_s=60.0, breaker_store=store_file,
+        )
+        agg.poll_once()
+        agg.poll_once()
+        assert agg._breakers["t0:1"].state == "open"
+        agg.close()  # forces a save
+
+        agg2 = SliceAggregator(
+            ("t0:1",), SnapshotStore(), fetch=dead_fetch,
+            breaker_failures=2, breaker_backoff_s=30.0,
+            breaker_backoff_max_s=60.0, breaker_store=store_file,
+        )
+        br = agg2._breakers["t0:1"]
+        assert br.state == "open"  # no re-learning from closed
+        assert br.seconds_until_probe > 0
+        agg2.close()
+
 
 # ------------------------------------------------------------ chaos tokens
 
@@ -695,6 +722,17 @@ class TestStateDirSummary:
         assert s["snapshot_age_s"] is not None and s["snapshot_age_s"] < 60
         assert s["total_bytes"] >= s["snapshot_bytes"]
 
+    def test_status_persist_line(self, tmp_path):
+        from tpu_pod_exporter_torch.status import persist_line
+
+        line = persist_line(str(tmp_path / "nope"))
+        assert "cold-start" in line
+        collector, _h, _store, _sups, persister = make_world(tmp_path)
+        persister.start()
+        collector.poll_once()
+        persister.close()  # writes the final checkpoint
+        line = persist_line(str(tmp_path))
+        assert "warm restart ready" in line
 
 
 # ------------------------------------------------------- the two packages

@@ -24,9 +24,14 @@ same relative path:
 - ``persist.py``, ``egress.py``, ``chaos.py`` — restart survivability
   (``--state-dir``), remote-write shipping (``--egress-url``) and fault
   injection (``--chaos-spec``);
-- the exporter core (collector, registry, server, history, …), copied from
-  the JAX package with only the package name changed, so that the port
-  holds no import of it.
+- ``aggregate.py``, ``shard.py``, ``fleet.py``, ``store.py``,
+  ``stream.py``, ``alerting.py`` and ``status.py`` — the fleet plane
+  above the nodes: slice rollups (the GPU family as ``family="gpu"``), the
+  leaf/root/replica tree, the federated query plane, the root's store,
+  streams and alerts, and the node and tree doctor;
+- the exporter core (collector, registry, server, history, …) and the
+  fleet plane, copied from the JAX package with only the package name
+  changed, so that the port holds no import of it.
 
 Entry points run on the card; the CPU is used only where a caller asks for
 it (``device="cpu"``, ``--backend fake``, the NVML sim flags).

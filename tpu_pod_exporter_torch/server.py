@@ -1122,6 +1122,8 @@ class _EventLoopServer:
         """Worker task for GET /api/v1/stream: validate the query shape,
         then either register an SSE subscription (snapshot now, deltas
         pushed per round) or serve/park one long-poll turn."""
+        from tpu_pod_exporter_torch.stream import HubFull, QueryShape
+
         st = self.state
         hub = st.stream
         if hub is None:
@@ -1131,10 +1133,6 @@ class _EventLoopServer:
                          "(no stream hub attached; poll /api/v1 instead)",
             }))
             return
-        # Imported only once a hub is attached: the exporter never attaches
-        # one, and this package carries no stream module.
-        from tpu_pod_exporter_torch.stream import HubFull, QueryShape
-
         qs = parse_qs(query, keep_blank_values=True)
 
         def param(name: str) -> str | None:
