@@ -101,6 +101,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                121 cards, the firing alert and the card; every tier exits 0
                on SIGTERM. Prints the round times, the stream's lag, the
                alert's latency and each process's CPU and RSS.
+15. drills    — the NVML probe (``probe --runtime nvml``) on the card: one
+               device, nvidia-smi's UUID, the minor of the node this
+               process holds, used memory up by the 16 GiB fill and down
+               after its release; phase 12's hwcheck artifact carries it;
+               the liveness watch writes one record with the card's nodes.
+               ``--backend libtpu``: without grpc the exporter exits
+               non-zero naming it; with grpc, the committed probe fixture's
+               unreachable service replays as unreachable and a fake
+               service of its metric names comes out as 4 chips of tpu_*
+               series. Then the port's drills as subprocesses (the card
+               idle), each with its state in a temporary directory: the 16
+               named scenarios at 120 targets and 4 shards, alone; then
+               side by side the 4 negative controls (each must fail on its
+               invariant), the fuzzer and the store demo, the shard demo
+               and the pressure negative control; then alone the pressure
+               demo, the dashboard demo (at the CI workflow's scale) and
+               its negative control. Prints each drill's seconds and
+               verdict.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -239,6 +257,58 @@ FLEET_ALERT_RULE = (
     '    labels(severity="info")\n'
     '    annotations(summary="{{{{ $labels.slice_name }}}} HBM above {threshold} B")\n')
 FLEET_STREAM = ("tpu_slice_hbm_used_bytes", 30.0)  # metric, window (s)
+# The drills phase: the port's drill CLIs at the Makefile's scale, each a
+# subprocess with its state under a temporary directory: (name, module,
+# arguments, whether it must exit 0, text its output must hold). The
+# negative controls must fail, and fail on the invariant they disable.
+# Groups run one after another; the lanes of a group side by side, each
+# lane's drills in turn. The drills whose checks are timings (the
+# scenarios' staleness and continuity windows, the scrape storm's polite
+# p99, the dashboard's push p99) run alone. The dashboard demo runs at the
+# CI workflow's scale (48 targets, 600 subscriptions) with the Makefile's
+# 1 s push budget: at the Makefile's 5000 subscriptions the push p99 took
+# 2.2-3.5 s in both packages on 8-core hosts (PERF.md).
+DRILL_SCENARIOS = 16
+DRILL_GROUPS = (
+    ((("scenario_suite", "loadgen.scenario", ("--targets", "120", "--shards", "4"),
+       True, "scenario-demo OK"),),),
+    ((("negative_alert_suppression", "loadgen.scenario",
+       ("--scenarios", "alert_partition", "--alert-suppression", "off",
+        "--targets", "24", "--shards", "2"), False, "suppression OFF"),
+      ("negative_store", "loadgen.scenario", ("--scenarios", "store_continuity",
+                                              "--store", "off"), False, "store OFF"),
+      ("negative_governor", "loadgen.scenario", ("--scenarios", "disk_full",
+                                                 "--governor", "off"), False, "nothing shed"),
+      ("negative_stream", "loadgen.scenario", ("--scenarios", "dashboard_storm",
+                                               "--stream", "off"), False, "stream disabled")),
+     (("fuzz", "fuzz", ("--seeds", "5,11", "--trials", "4"), True, "0 failure(s)"),
+      ("store_demo", "store", ("--demo", "--targets", "1000", "--days", "7",
+                               "--query-targets", "200"), True, "store-demo OK")),
+     (("shard_demo", "loadgen.fleet", ("--mode", "shard", "--targets", "1000", "--shards", "8",
+                                       "--chips", "2", "--churn", "32", "--round-budget-s",
+                                       "15", "--gpu-slices", "2"), True, "shard-demo OK"),
+      ("pressure_negative_control", "pressure", ("--negative-control",), True,
+       "negative control OK"))),
+    ((("pressure_demo", "pressure", ("--demo",), True, "storm drill OK"),
+      ("dashboard_demo", "loadgen.fleet", ("--mode", "dashboard", "--targets", "48",
+                                           "--shards", "2", "--chips", "2", "--subs", "600",
+                                           "--rounds", "6", "--replicas", "2"),
+       True, "dashboard-demo OK"),
+      ("dashboard_negative", "loadgen.fleet", ("--mode", "dashboard", "--targets", "24",
+                                               "--shards", "2", "--chips", "2", "--subs", "48",
+                                               "--rounds", "4", "--replicas", "1",
+                                               "--negative"),
+       True, "dashboard-demo OK (negative control)")),),
+)
+# The state flag of each drill module.
+DRILL_STATE_FLAG = {"loadgen.scenario": "--state-root", "loadgen.fleet": "--state-root",
+                    "fuzz": "--state-root", "store": "--state-dir"}
+DRILL_TIMEOUT_S = 420
+# The libtpu service the exporter reads in the drills phase: the metric
+# names the committed probe fixture asked a TPU VM for, served for this
+# many chips (used, total) and duty cycle.
+LIBTPU_FIXTURE = REPO / "tests" / "fixtures" / "libtpu-metrics.json"
+LIBTPU_CHIPS = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -827,9 +897,9 @@ def kubelet_fixture(tmp: str, uuid: str) -> dict:
             "uid_map_file": str(uids)}
 
 
-def phase_nvml(dev, tm, hwcheck, uuid: str) -> dict:
+def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
     """The GPU node path on the card. Returns the launches by kernel of its
-    closed loop."""
+    closed loop and the NVML probe its hwcheck artifact carries."""
     import tempfile
 
     from tpu_pod_exporter_torch.app import build_backend
@@ -928,7 +998,7 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> dict:
          utilization_burn=chip.tensorcore_duty_cycle_percent,
          process_rows_burn={str(p.pid): p.used_bytes for p in chip.processes},
          auto=auto.name, auto_chips=len(auto_chips), device_path=chip.info.device_path)
-    return by_kernel
+    return by_kernel, report["probe"]
 
 
 def free_port() -> int:
@@ -1899,6 +1969,295 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
     return by_kernel
 
 
+def run_port(module: str, *args: str, timeout: float = 60, env=None):
+    """``python -m tpu_pod_exporter_torch.<module> *args``, completed."""
+    return subprocess.run([sys.executable, "-m", f"tpu_pod_exporter_torch.{module}", *args],
+                          cwd=REPO, capture_output=True, text=True, timeout=timeout, env=env)
+
+
+def probe_card() -> dict:
+    """The port's NVML probe as a subprocess: it must exit 0."""
+    proc = run_port("probe", "--runtime", "nvml")
+    if proc.returncode != 0:
+        raise AssertionError(f"drills: probe --runtime nvml rc={proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)
+
+
+def phase_drills_probe(dev, uuid: str, hwcheck_probe: dict) -> dict:
+    """Phase 15 (a): the NVML probe on the card, idle, under the 16 GiB fill
+    and after its release; hwcheck's artifact; the liveness watch."""
+    import gc
+    import tempfile
+
+    from tpu_pod_exporter_torch.loadgen.workload import hbm_fill
+
+    def settle() -> None:
+        # Tensors of earlier phases that only a collection frees, then the
+        # allocator's cache: the card holds no memory of this process's
+        # but the fill's.
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+    settle()
+    idle = probe_card()
+    fill = hbm_fill(FILL_BYTES, device=dev)
+    filled = probe_card()
+    del fill
+    settle()
+    released = probe_card()
+    held = held_card_nodes()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp, "watch.jsonl")
+        watch = run_port("tunnelwatch", "--out", str(out), "--max-seconds", "2",
+                         "--interval", "1", timeout=30)
+        records = [json.loads(line) for line in out.read_text().splitlines()] if out.exists() else []
+    (card,) = idle["devices"] if idle["count"] == 1 else (None,)
+    used = [r["devices"][0]["memory_used_bytes"] if r["count"] == 1 else None
+            for r in (idle, filled, released)]
+    hw_card = (hwcheck_probe.get("devices") or [{}])[0]
+    emit("drills_probe", count=idle["count"], device=card, supported=idle["supported"],
+         errors=idle["errors"], used_bytes={"idle": used[0], "filled": used[1],
+                                            "released": used[2]},
+         held_nodes=sorted(held), hwcheck_probe={"reachable": hwcheck_probe.get("reachable"),
+                                                 "uuid": hw_card.get("uuid")},
+         tunnelwatch={"rc": watch.returncode, "records": records})
+    if card is None or card["uuid"] != uuid:
+        raise AssertionError(f"drills: probe counted {idle['count']}, card {card}, "
+                             f"nvidia-smi UUID {uuid}")
+    if held != {f"/dev/nvidia{card['minor']}"}:
+        raise AssertionError(f"drills: probe minor {card['minor']}, this process holds {held}")
+    if not (used[1] - used[0] >= FILL_BYTES and used[1] - used[2] >= FILL_BYTES):
+        raise AssertionError(f"drills: probe used {used} against the {FILL_BYTES} B fill")
+    if not (hwcheck_probe.get("reachable") and hw_card.get("uuid") == uuid):
+        raise AssertionError(f"drills: hwcheck's artifact carries probe {hwcheck_probe}")
+    if not (watch.returncode == 0 and len(records) == 1 and records[0]["device_nodes"]
+            and records[0]["change"]):
+        raise AssertionError(f"drills: tunnelwatch rc={watch.returncode} {records} "
+                             f"{watch.stderr[-1000:]}")
+    return card
+
+
+class LibtpuService:
+    """A RuntimeMetricService on a unix socket, from the port's protobufs:
+    ``tables`` maps a metric name to its rows ``[(device, value)]``, any
+    other name answers NOT_FOUND and the enumeration RPC UNIMPLEMENTED.
+    ``unavailable`` answers every call UNAVAILABLE instead, as a service
+    that refuses connections does."""
+
+    def __init__(self, sock: str, tables: dict, unavailable: bool = False):
+        from concurrent import futures
+
+        import grpc
+
+        from tpu_pod_exporter_torch.backend.proto import tpu_metric_service_pb2 as pb
+
+        self.addr = f"unix://{sock}"
+        responses = {}
+        for name, rows in tables.items():
+            resp = pb.MetricResponse()
+            for device, value in rows:
+                m = resp.metric.metrics.add()
+                attr = m.attribute.add()
+                attr.key, attr.value.int_attr = "device-id", device
+                m.gauge.as_int = value
+            responses[name] = resp
+
+        def get(request, context):
+            if unavailable:
+                context.abort(grpc.StatusCode.UNAVAILABLE, "connection refused")
+            if request.metric_name not in responses:
+                context.abort(grpc.StatusCode.NOT_FOUND, "unsupported metric")
+            return responses[request.metric_name]
+
+        def list_supported(request, context):
+            context.abort(grpc.StatusCode.UNAVAILABLE if unavailable
+                          else grpc.StatusCode.UNIMPLEMENTED, "no enumeration")
+
+        self._server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
+        self._server.add_generic_rpc_handlers((grpc.method_handlers_generic_handler(
+            "tpu.monitoring.runtime.RuntimeMetricService", {
+                "GetRuntimeMetric": grpc.unary_unary_rpc_method_handler(
+                    get, request_deserializer=pb.MetricRequest.FromString,
+                    response_serializer=pb.MetricResponse.SerializeToString),
+                "ListSupportedMetrics": grpc.unary_unary_rpc_method_handler(
+                    list_supported,
+                    request_deserializer=pb.ListSupportedMetricsRequest.FromString,
+                    response_serializer=pb.ListSupportedMetricsResponse.SerializeToString),
+            }),))
+        self._server.add_insecure_port(self.addr)
+        self._server.start()
+
+    def stop(self) -> None:
+        self._server.stop(0)
+
+
+def phase_drills_libtpu() -> dict:
+    """Phase 15 (b): ``--backend libtpu`` on the card's machine. Without
+    grpc the exporter must exit non-zero naming grpc; with it, the probe
+    replays the committed fixture's unreachable service, and the exporter
+    serves the fixture's metric names from a fake service as tpu_* series."""
+    import importlib.util
+    import signal
+    import tempfile
+
+    blocked = ("import sys\nsys.modules['grpc'] = None\n"
+               "from tpu_pod_exporter_torch.app import main\n"
+               "sys.exit(main(sys.argv[1:]))\n")
+    argv = ["--backend", "libtpu", "--attribution", "none", "--port", "0",
+            "--host", "127.0.0.1"]
+    have_grpc = importlib.util.find_spec("grpc") is not None
+    refused = subprocess.run([sys.executable, "-c", blocked, *argv] if have_grpc
+                             else [sys.executable, "-m", "tpu_pod_exporter_torch", *argv],
+                             cwd=REPO, capture_output=True, text=True, timeout=60)
+    result = {"grpc_installed": have_grpc, "without_grpc_rc": refused.returncode,
+              "without_grpc_stderr": refused.stderr.strip().splitlines()[-1:]}
+    if refused.returncode == 0 or "grpc" not in refused.stderr:
+        raise AssertionError(f"drills: --backend libtpu without grpc rc={refused.returncode} "
+                             f"{refused.stderr[-1000:]}")
+    if not have_grpc:
+        emit("drills_libtpu", **result)
+        return result
+
+    from tpu_pod_exporter_torch.backend.libtpu import DUTY_CYCLE, HBM_TOTAL, HBM_USAGE
+
+    recorded = json.loads(LIBTPU_FIXTURE.read_text())
+    names = sorted(n for n in recorded["errors"] if not n.startswith("<"))
+    gib = 1 << 30
+    tables = {HBM_USAGE: [(d, (d + 1) * gib) for d in range(LIBTPU_CHIPS)],
+              HBM_TOTAL: [(d, 32 * gib) for d in range(LIBTPU_CHIPS)],
+              DUTY_CYCLE: [(d, 10 * d) for d in range(LIBTPU_CHIPS)]}
+    if not set(tables) <= set(names):
+        raise AssertionError(f"drills: the fixture does not name {sorted(set(tables) - set(names))}")
+    with tempfile.TemporaryDirectory() as tmp:
+        service = LibtpuService(f"{tmp}/recorded.sock", {}, unavailable=True)
+        try:
+            replay = run_port("probe", "--runtime", "libtpu", "--addr", service.addr,
+                              "--timeout-s", "1", timeout=120)
+        finally:
+            service.stop()
+        doc = json.loads(replay.stdout)
+        result["fixture_replay"] = {"rc": replay.returncode, "reachable": doc["reachable"],
+                                    "errors": len(doc["errors"])}
+        if replay.returncode != 2 or doc["reachable"] or sorted(doc["errors"]) != sorted(
+                recorded["errors"]):
+            raise AssertionError(f"drills: the recorded service probed as {doc}")
+
+        service = LibtpuService(f"{tmp}/served.sock", tables)
+        port = free_port()
+        with open(Path(tmp, "exporter.log"), "wb") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "tpu_pod_exporter_torch", "--backend", "libtpu",
+                 "--libtpu-metrics-addr", service.addr, "--attribution", "none",
+                 "--port", str(port), "--host", "127.0.0.1", "--interval-s", "0.5"],
+                cwd=REPO, stdout=log, stderr=log)
+        try:
+            base = f"http://127.0.0.1:{port}"
+
+            def served():
+                body = http_get(base + "/metrics")[1]
+                return body if len(samples_of(body, "tpu_hbm_used_bytes")) == LIBTPU_CHIPS else None
+
+            body = wait_for(served, 30, "the libtpu chips on /metrics", phase="drills")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            service.stop()
+        log_tail = Path(tmp, "exporter.log").read_text()[-2000:]
+    used = {s.labels["chip_id"]: s.value for s in samples_of(body, "tpu_hbm_used_bytes")}
+    total = [s.value for s in samples_of(body, "tpu_hbm_total_bytes")]
+    duty = {s.labels["chip_id"]: s.value
+            for s in samples_of(body, "tpu_tensorcore_duty_cycle_percent")}
+    result.update(exporter_rc=rc, hbm_used_bytes=used, hbm_total_bytes=total,
+                  duty_cycle_percent=duty, gpu_series=b"gpu_hbm_used_bytes" in body)
+    emit("drills_libtpu", **result)
+    want_used = {str(d): float((d + 1) * gib) for d in range(LIBTPU_CHIPS)}
+    want_duty = {str(d): float(10 * d) for d in range(LIBTPU_CHIPS)}
+    if not (rc == 0 and used == want_used and total == [32.0 * gib] * LIBTPU_CHIPS
+            and duty == want_duty and not result["gpu_series"]):
+        raise AssertionError(f"drills: --backend libtpu served {result}\n{log_tail}")
+    return result
+
+
+def run_drill(tmp: str, name: str, module: str, args: tuple, want_ok: bool,
+              must_print: str) -> dict:
+    """One drill as a subprocess with its state (and TMPDIR) under ``tmp``.
+    Raises, with the end of its output, unless it exits as it must and
+    prints ``must_print``."""
+    state = Path(tmp, name)
+    state.mkdir()
+    flag = DRILL_STATE_FLAG.get(module)
+    argv = [*args, flag, str(state / "state")] if flag else list(args)
+    t0 = time.monotonic()
+    proc = run_port(module, *argv, timeout=DRILL_TIMEOUT_S,
+                    env=dict(os.environ, TMPDIR=str(state)))
+    seconds = time.monotonic() - t0
+    record = {"name": name, "rc": proc.returncode, "seconds": seconds,
+              "verdict": next((ln.strip() for ln in reversed(proc.stdout.splitlines())
+                               if must_print in ln), None)}
+    if name == "scenario_suite":
+        summary = json.loads((state / "state" / "result.json").read_text())
+        record["scenarios"] = {n: [r["ok"], r.get("wall_s"), r.get("rss_growth_mb")]
+                               for n, r in summary["scenarios"].items()}
+    if (proc.returncode == 0) != want_ok or record["verdict"] is None:
+        raise AssertionError(f"drills: {name} rc={proc.returncode}, want "
+                             f"{'0' if want_ok else 'non-zero'} and {must_print!r}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+    if "scenarios" in record and not (len(record["scenarios"]) == DRILL_SCENARIOS and all(
+            ok for ok, *_ in record["scenarios"].values())):
+        raise AssertionError(f"drills: scenario suite {record['scenarios']}")
+    return record
+
+
+def phase_drills(dev, uuid: str, hwcheck_probe: dict) -> None:
+    """Phase 15: the probe and the liveness watch on the card, --backend
+    libtpu, then every drill of the port as a subprocess (the card idle:
+    the drills do not read it)."""
+    import tempfile
+    import threading
+
+    t_phase = time.monotonic()
+    card = phase_drills_probe(dev, uuid, hwcheck_probe)
+    libtpu = phase_drills_libtpu()
+    runs: list = []
+    errors: list = []
+
+    def lane(tmp: str, drills) -> None:
+        for drill in drills:
+            try:
+                record = run_drill(tmp, *drill)
+            except Exception as e:  # noqa: BLE001 — raised below, after every lane
+                errors.append(e)
+                return
+            runs.append(record)
+            emit("drill", **record)
+
+    t_drills = time.monotonic()
+    groups_s = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for lanes in DRILL_GROUPS:
+            t_group = time.monotonic()
+            threads = [threading.Thread(target=lane, args=(tmp, drills), daemon=True,
+                                        name=f"drill-lane-{i}")
+                       for i, drills in enumerate(lanes)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            groups_s.append(time.monotonic() - t_group)
+            if errors:
+                break
+    emit("drills", seconds=time.monotonic() - t_phase, groups_seconds=groups_s,
+         drills_seconds=time.monotonic() - t_drills, runs=len(runs), card_minor=card["minor"],
+         libtpu_grpc=libtpu["grpc_installed"])
+    if errors:
+        raise errors[0]
+
+
 def main() -> int:
     from tpu_pod_exporter_torch import hwcheck, nativelib
     from tpu_pod_exporter_torch.kernels import online_softmax as osm
@@ -1947,11 +2306,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel = phase_parallel(dev, tm, sgd, osm, par)
     torch.cuda.empty_cache()
-    nvml = phase_nvml(dev, tm, hwcheck, uuid)
+    nvml, hwcheck_probe = phase_nvml(dev, tm, hwcheck, uuid)
     torch.cuda.empty_cache()
     node_state = phase_node_state(dev, tm, hwcheck, uuid, libtpumon)
     torch.cuda.empty_cache()
     fleet = phase_fleet(dev, tm, hwcheck, uuid)
+    torch.cuda.empty_cache()
+    phase_drills(dev, uuid, hwcheck_probe)
 
     # Launches on the main paths: the closed loop, the training run, the
     # collective programs, the NVML closed loop, the node state phase and

@@ -413,6 +413,30 @@ def test_nvml_sees_a_gib_allocation_and_its_release(dev):
     assert sum(r["usedGpuMemory"] or 0 for r in rows) >= 1 << 30
 
 
+def test_probe_nvml_agrees_with_torch_and_nvidia_smi(dev):
+    """The probe's report of the card: NVML's count is torch's, and the
+    card's UUID and memory total are nvidia-smi's."""
+    import subprocess
+
+    from tpu_pod_exporter_torch.backend.torchdev import _nvml_uuid
+    from tpu_pod_exporter_torch.probe import probe_nvml
+
+    report = probe_nvml()
+    assert report["reachable"] is True
+    assert report["count"] == torch.cuda.device_count()
+    uuid = _nvml_uuid(torch.cuda.get_device_properties(dev).uuid)
+    (card,) = [d for d in report["devices"] if d["uuid"] == uuid]
+    smi = subprocess.run(
+        ["nvidia-smi", f"--id={uuid}", "--query-gpu=uuid,memory.total",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=30).stdout.strip()
+    smi_uuid, smi_total_mib = (field.strip() for field in smi.split(","))
+    assert smi_uuid == uuid
+    assert card["memory_total_bytes"] // 2**20 == int(smi_total_mib)
+    assert card["name"] == torch.cuda.get_device_name(dev)
+    assert isinstance(card["minor"], int)
+
+
 def test_this_process_holds_the_minor_node(dev):
     import os
 

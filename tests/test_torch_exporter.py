@@ -146,7 +146,10 @@ class TestHwcheckFake:
         assert report["phases"]["load"]["hbm_used_bytes"] > (
             report["phases"]["idle"]["hbm_used_bytes"]
         )
-        assert report["probe"] == "not ported"
+        probe = report["probe"]
+        assert probe["runtime"] == "nvml"
+        assert isinstance(probe["reachable"], bool)
+        assert set(probe) >= {"count", "devices", "supported", "errors"}
 
     def test_fake_backend_failure_detected(self):
         # A stimulus that does nothing must fail the rise/fall checks —
@@ -213,19 +216,22 @@ class TestRefusals:
 
     @pytest.mark.parametrize("backend", ["jax", "libtpu", "nvml", "recorded"])
     def test_unported_backends_raise(self, backend):
-        """jax and libtpu are still refused; nvml and recorded build."""
+        """jax is still refused; libtpu, nvml and recorded build."""
         if backend in tapp.UNPORTED_BACKENDS:
             with pytest.raises(ValueError, match=f"{backend}.*not yet ported"):
                 tapp.ExporterApp(ExporterConfig(port=0, backend=backend,
                                                 attribution="none"))
             return
         source = {"nvml": {"nvml_sim_gpus": 2},
-                  "recorded": {"recording_path": "tests/fixtures/gpu-recorded.jsonl"}}
+                  "recorded": {"recording_path": "tests/fixtures/gpu-recorded.jsonl"},
+                  "libtpu": {"libtpu_metrics_addr": "unix:///nonexistent/libtpu.sock"}}
+        family, resource = (("tpu", "google.com/tpu") if backend == "libtpu"
+                            else ("gpu", "nvidia.com/gpu"))
         app = tapp.ExporterApp(ExporterConfig(port=0, backend=backend, attribution="none",
                                               **source[backend]))
         try:
-            assert (app.backend.name, app.backend.family) == (backend, "gpu")
-            assert app.resource_name == "nvidia.com/gpu"
+            assert (app.backend.name, app.backend.family) == (backend, family)
+            assert app.resource_name == resource
         finally:
             app.stop()
 

@@ -1,5 +1,5 @@
 """The cases of tests/test_fleet.py against ``tpu_pod_exporter_torch``, with the
-imports renamed; the fleet-query demo waits for the port's ``loadgen.fleet``.
+imports renamed.
 
 Federated fleet query plane.
 
@@ -495,3 +495,20 @@ class TestStatusFleet:
         assert "failed" in capsys.readouterr().err
 
 
+class TestFleetSimAcceptance:
+    def test_small_fleet_demo_end_to_end(self):
+        # The make fleet-query-demo scenario at test scale: full merge,
+        # staleness, traceparent join, kill→partial, p99 budget — with
+        # tracing and persistence ON.
+        from tpu_pod_exporter_torch.loadgen.fleet import run_demo
+
+        result = run_demo(
+            n_targets=4, chips=2, polls=4, interval_s=0.01,
+            queries=6, budget_ms=5000.0, kill_one=True, persist=True,
+        )
+        assert result["ok"], result
+        assert result["full_merge"]["merged_series"] == 8
+        assert result["after_kill"]["partial"] is True
+        assert result["after_kill"]["ok_targets"] == 3
+        assert result["after_kill"]["merged_series"] == 6
+        assert result["node_side_query_spans"] > 0

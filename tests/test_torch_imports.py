@@ -25,9 +25,12 @@ VERBATIM = (
     "attribution/fake.py",
     "attribution/checkpoint.py", "attribution/podresources.py",
     "attribution/proto/__init__.py", "attribution/proto/podresources_pb2.py",
+    "attribution/proto/podresources.proto",
     "attribution/uidmap.py",
-    "backend/__init__.py", "backend/fake.py", "chaos.py", "collector.py",
-    "egress.py", "history.py",
+    "backend/__init__.py", "backend/fake.py", "backend/recorded.py",
+    "backend/proto/__init__.py", "backend/proto/tpu_metric_service_pb2.py",
+    "chaos.py", "collector.py",
+    "egress.py", "fuzz.py", "history.py",
     "metrics/__init__.py", "metrics/native.py", "metrics/parse.py",
     "metrics/schema.py", "shard.py",
     "supervisor.py", "topology.py", "utils.py", "version.py",
@@ -36,20 +39,44 @@ VERBATIM = (
 # (reference lines replaced, port lines in their place).
 EDITED = {
     "config.py": (2, 2),           # the --backend choices, the NVML binding comments
+    # /dev/nvidia<minor> nodes, sorted by minor, no native scan; the
+    # reference's accel -> vfio -> sysfs scan kept as list_tpu_device_paths
+    # for the libtpu backend.
+    "backend/discovery.py": (31, 40),
+    # Chips keyed by list_tpu_device_paths; comments: no history reference.
+    "backend/libtpu.py": (6, 6),
+    "backend/proto/tpu_metric_service.proto": (1, 1),  # comment: no history reference
     # The ctypes driver is the default; the device node is named by minor;
     # IRQ_ISSUE and FUNCTION_NOT_FOUND carry nvml.h's codes.
     "backend/nvml.py": (4, 21),
-    # /dev/nvidia<minor> nodes only, sorted by minor; no native scan.
-    "backend/discovery.py": (57, 26),
-    # Its own _link_sort_key in place of the import from backend/libtpu.
-    "backend/recorded.py": (3, 9),
     # GPU prefixes match /dev/nvidia<minor> only, in both /proc walks.
     "procscan.py": (7, 18),
     # The library is this package's own build of native/tpumon.cc, compiled
     # with g++ at first use into _build/, never the JAX package's .so.
     "nativelib.py": (4, 48),
-    # --backend torch|nvml (jax and libtpu refused); the GPU scan prefixes.
-    "app.py": (16, 32),
+    # --backend torch|nvml (jax refused), auto prefers NVML; the GPU scan
+    # prefixes.
+    "app.py": (12, 32),
+    # The libtpu probe verbatim, beside probe_nvml and --runtime.
+    "probe.py": (11, 127),
+    # sample() reads the card's device nodes, not the tunnel's ports.
+    "tunnelwatch.py": (28, 31),
+    # TorchStimulus in place of the JAX burn; the NVML probe in the artifact.
+    "hwcheck.py": (112, 161),
+    # Comments: no history reference.
+    "scenario.py": (3, 3),
+    # Docstring: no history reference; store_continuity's hole allowance
+    # runs from the last durable round before the kill to the first round
+    # after the restart, measured from the run's round ends (the reference
+    # allows a fixed 2.5 s, which a slower host's rounds exceed); a root
+    # restart drops the run's plane and store before the fresh root starts.
+    "loadgen/scenario.py": (4, 21),
+    # restart_root releases the killed root before building the fresh one.
+    "loadgen/fleet.py": (1, 4),
+    # The scrape storm runs in a child process (_ProcessStorm): in the
+    # drill's own process its threads contend with the server and the
+    # polite scraper for the interpreter lock.
+    "pressure_demo.py": (3, 57),
     # The WAL restore names GPU series' labels (the reference restores them
     # label-less from the WAL: it looks only in ALL_SPECS); docstring: no
     # history reference.
@@ -121,6 +148,11 @@ def test_entry_modules_load_no_jax():
         "import tpu_pod_exporter_torch.store, tpu_pod_exporter_torch.aggregate\n"
         "import tpu_pod_exporter_torch.alerting, tpu_pod_exporter_torch.shard\n"
         "import tpu_pod_exporter_torch.status\n"
+        "import tpu_pod_exporter_torch.scenario, tpu_pod_exporter_torch.fuzz\n"
+        "import tpu_pod_exporter_torch.pressure_demo\n"
+        "import tpu_pod_exporter_torch.loadgen.fleet, tpu_pod_exporter_torch.loadgen.scenario\n"
+        "import tpu_pod_exporter_torch.backend.libtpu, tpu_pod_exporter_torch.probe\n"
+        "import tpu_pod_exporter_torch.tunnelwatch\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -132,11 +164,13 @@ def test_entry_modules_load_no_jax():
     assert "tpu_pod_exporter_torch.backend.nvml_ctypes" in added
     assert "tpu_pod_exporter_torch.chaos" in added
     for tier in ("stream", "fleet", "store", "aggregate", "alerting", "shard",
-                 "status"):
+                 "status", "scenario", "fuzz", "pressure_demo", "loadgen.fleet",
+                 "loadgen.scenario", "backend.libtpu", "probe", "tunnelwatch"):
         assert f"tpu_pod_exporter_torch.{tier}" in added
     assert [m for m in added if _forbidden(m)] == []
     # The card's path needs neither gRPC nor protobuf nor pynvml: the
-    # kubelet podresources client loads them only when it is selected.
+    # kubelet podresources client and the libtpu backend load them only
+    # when they are selected.
     assert [m for m in added
             if m.split(".")[0] in ("grpc", "pynvml") or m.startswith("google.protobuf")] == []
 
@@ -149,6 +183,31 @@ def _diff_counts(rel: str) -> tuple[int, int]:
     changed = [op for op in ops if op[0] != "equal"]
     return (sum(i2 - i1 for _, i1, i2, _, _ in changed),
             sum(j2 - j1 for _, _, _, j1, j2 in changed))
+
+
+@pytest.mark.parametrize("rel", ["backend/proto/tpu_metric_service_pb2.py",
+                                 "attribution/proto/podresources_pb2.py",
+                                 "attribution/proto/podresources.proto"])
+def test_wire_definitions_are_the_reference_byte_for_byte(rel):
+    """The generated modules keep the reference's serialized descriptors
+    (package and file names included), so both packages speak one wire."""
+    assert (PORT / rel).read_bytes() == (REFERENCE / rel).read_bytes()
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every file of the JAX package has a file at the same path in the
+    port, except the lint (``analysis/``) and the two JAX runtime modules,
+    which have counterparts under other names."""
+    renamed = {"backend/jaxdev.py": "backend/torchdev.py", "jaxenv.py": "cudaenv.py"}
+    missing = []
+    for path in sorted(REFERENCE.rglob("*")):
+        rel = path.relative_to(REFERENCE).as_posix()
+        if (not path.is_file() or "__pycache__" in rel or rel.startswith("analysis/")
+                or path.suffix == ".pyc"):
+            continue
+        if not (PORT / renamed.get(rel, rel)).is_file():
+            missing.append(rel)
+    assert missing == []
 
 
 def test_native_source_is_the_reference_byte_for_byte():

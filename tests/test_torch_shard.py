@@ -1,5 +1,5 @@
 """The cases of tests/test_shard.py against ``tpu_pod_exporter_torch``, with the
-imports renamed; the shard demo waits for the port's ``loadgen.fleet``.
+imports renamed.
 
 Sharded HA aggregation tree (tpu_pod_exporter_torch.shard) tests.
 
@@ -920,3 +920,19 @@ class TestStatusTree:
         text = render_tree(doc)
         assert "shard-0" in text and "DOWN" in text
         assert "fleet:" in text and "leaves down:" in text
+
+
+@pytest.mark.parametrize("n_targets", [40])
+def test_shard_demo_small_end_to_end(tmp_path, n_targets):
+    """The acceptance harness itself, at test scale: churn storm, mid-round
+    HA leaf kill + restart, freshest-wins, oracle equality, budgets."""
+    from tpu_pod_exporter_torch.loadgen.fleet import run_shard_demo
+
+    result = run_shard_demo(
+        n_targets, shards=2, ha=True, chips=2, churn=8,
+        round_budget_s=30.0, stale_budget_s=10.0,
+        state_root=str(tmp_path / "state"),
+    )
+    assert result["ok"], result.get("error")
+    assert result["kill"]["series_lost"] == []
+    assert result["churn"]["assignment_moves"] <= result["churn"]["bound"]

@@ -1,7 +1,5 @@
 """The cases of tests/test_store.py against ``tpu_pod_exporter_torch``, with the
-imports renamed; the root wiring case (``loadgen.fleet._ShardSim``) and the
-store_continuity drill wait for the port's ``loadgen`` fleet and scenario
-modules.
+imports renamed.
 
 Fleet TSDB-lite: durable, queryable fleet history at the root.
 
@@ -827,3 +825,64 @@ class TestDemos:
                                 days=0.5, verbose=False)
         out = capsys.readouterr().out
         assert rc == 0, out
+
+
+class TestRootWiring:
+    def test_root_appends_and_emits(self, tmp_path, quiet_logs):
+        from tpu_pod_exporter_torch.loadgen.fleet import _ShardSim
+
+        holder = {}
+
+        def factory():
+            s = FleetStore(str(tmp_path / "store"), tiers="0.5:64,5:64")
+            s.open()
+            holder["store"] = s
+            return s
+
+        sim = _ShardSim(4, 1, False, 1, str(tmp_path), timeout_s=5.0,
+                        store_factory=factory)
+        try:
+            for _ in range(3):
+                sim.run_round()
+            st = holder["store"]
+            assert st.stats()["samples_appended"] > 0
+            body = sim.root_body()
+            assert "tpu_root_store_series" in body
+            assert "tpu_root_store_span_seconds" in body
+            assert 'tpu_root_store_dropped_records_total{reason="shed"}' \
+                in body
+            assert sim.root.debug_vars()["store"]["series"] > 0
+            # Store rows answer for per-target series the fleet owns.
+            rows = st.query_range(schema.TPU_AGG_TARGET_UP.name)
+            assert len(rows) == 4
+        finally:
+            sim.close()
+
+
+class TestScenarioDrill:
+    def test_dsl_parses_root_restart(self):
+        from tpu_pod_exporter_torch.scenario import SCENARIOS, parse_scenario
+
+        (ev,) = parse_scenario("root_restart()@4+2")
+        assert ev.kind == "root_restart"
+        assert ev.duration == 2
+        with pytest.raises(ValueError, match="takes no arguments"):
+            parse_scenario("root_restart(now)@4")
+        scn = SCENARIOS["store_continuity"]
+        assert scn.uses_store and not scn.uses_egress
+        assert scn.events()  # the committed timeline parses
+
+    def test_store_continuity_end_to_end_and_negative_control(
+            self, tmp_path, quiet_logs):
+        from tpu_pod_exporter_torch.loadgen.scenario import run_scenarios
+
+        summary = run_scenarios(["store_continuity"], 8, 1, 1,
+                                str(tmp_path / "on"), seed=7, store=True)
+        assert summary["ok"], summary["scenarios"]["store_continuity"]
+        # Negative control: the SAME invariant must fail without a store.
+        summary = run_scenarios(["store_continuity"], 8, 1, 1,
+                                str(tmp_path / "off"), seed=7, store=False)
+        assert not summary["ok"]
+        problems = summary["scenarios"]["store_continuity"]["problems"]
+        assert any("store OFF" in p and "gap" in p for p in problems), \
+            problems

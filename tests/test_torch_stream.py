@@ -1,6 +1,5 @@
 """The cases of tests/test_stream.py against ``tpu_pod_exporter_torch``, with the
-imports renamed; the scenario DSL's dashboard_storm cases and the dashboard demo wait for
-the port's ``scenario`` and ``loadgen.fleet``.
+imports renamed.
 
 Streaming dashboard plane.
 
@@ -836,3 +835,46 @@ class TestReviewHardening:
         # No budget + no existing governor ⇒ nothing built.
         assert build_serving_governor(0, cache_plane=plane,
                                       hub=hub) is None
+
+
+class TestScenarioDsl:
+    def test_dashboard_storm_parses(self):
+        from tpu_pod_exporter_torch.scenario import SCENARIOS, parse_event
+
+        ev = parse_event("dashboard_storm(500)@2+6")
+        assert ev.count == 500 and ev.duration == 6
+        # The named drill's timeline must itself parse.
+        assert SCENARIOS["dashboard_storm"].events()
+
+    @pytest.mark.parametrize("raw,needle", [
+        ("dashboard_storm()@2+4", "subscription"),
+        ("dashboard_storm(x)@2+4", "integer"),
+        ("dashboard_storm(0)@2+4", ">= 1"),
+        ("dashboard_storm(10)@2", "duration"),
+    ])
+    def test_dashboard_storm_parse_errors(self, raw, needle):
+        from tpu_pod_exporter_torch.scenario import parse_event
+
+        with pytest.raises(ValueError, match=needle):
+            parse_event(raw)
+
+
+class TestDashboardDemoSmoke:
+    def test_small_scale_end_to_end(self, tmp_path):
+        """The acceptance harness at toy scale: subscriptions against one
+        root + one replica over a real leaf tier, replica killed
+        mid-storm, every invariant green."""
+        from tpu_pod_exporter_torch.loadgen.fleet import run_dashboard_demo
+
+        result = run_dashboard_demo(
+            n_targets=12, shards=2, chips=2, subs=16, rounds=3,
+            replicas=1, state_root=str(tmp_path / "dash"),
+            push_p99_budget_s=5.0, rss_cap_mb=256.0,
+        )
+        assert result["ok"], result["failures"]
+        assert result["connected"] == 16
+        assert result["gaps"] == 0 and result["dups"] == 0
+        assert result["equality_failures"] == 0
+        assert result["replica_kill"]["live_after"] == 16
+        assert result["shed"]["counted"] == result["shed"]["shed"]
+        assert result["pull_baseline"]["qps_one_client"] > 0

@@ -7,7 +7,8 @@ test_backend_nvml.py each hold a few cases that reach ``aggregate``,
 ``tpu_pod_exporter_torch`` with the imports renamed, case for case: the
 history fallback and the status watch trends (history), the pressure
 sidecar's status line, dead state dirs under a leaf and a root, the fleet
-cache's and the root's stale-view byte accounting (pressure), the
+cache's and the root's stale-view byte accounting, the scenario DSL's
+pressure kinds (pressure), the
 traceparent join of a round trace and a node scrape span (trace), the
 parse caches under label churn (churn), and the mixed-fleet rollups that
 keep the GPU family apart from the TPU family (NVML backend).
@@ -676,3 +677,46 @@ class TestMixedFleetRollups:
             for labels, value in evaluate_rule(rule, b.build(timestamp=0.0))
         )
         assert out == {"tpu": 12.0, "gpu": 2.0}
+
+
+class TestScenarioDsl:
+    def test_new_kinds_parse(self):
+        from tpu_pod_exporter_torch.scenario import parse_event, parse_scenario
+
+        ev = parse_event("disk_full()@3+4")
+        assert ev.kind == "disk_full" and ev.duration == 4
+        ev = parse_event("mem_pressure()@2")
+        assert ev.kind == "mem_pressure" and ev.duration == 1
+        ev = parse_event("scrape_storm(120)@3+2")
+        assert ev.kind == "scrape_storm" and ev.count == 120
+        ev = parse_event("clock_step(-45)@2")
+        assert ev.kind == "clock_step" and ev.step_s == -45.0
+        ev = parse_event("clock_step(+3600)@1")
+        assert ev.step_s == 3600.0
+        evs = parse_scenario("clock_step(-45)@2; disk_full()@3+4")
+        assert [e.kind for e in evs] == ["clock_step", "disk_full"]
+
+    def test_new_kind_errors_are_actionable(self):
+        from tpu_pod_exporter_torch.scenario import parse_event
+
+        with pytest.raises(ValueError, match="takes no arguments"):
+            parse_event("disk_full(3)@1")
+        with pytest.raises(ValueError, match="takes no arguments"):
+            parse_event("mem_pressure(x)@1")
+        with pytest.raises(ValueError, match="connection count"):
+            parse_event("scrape_storm(zero)@1")
+        with pytest.raises(ValueError, match="must be >= 1"):
+            parse_event("scrape_storm(0)@1")
+        with pytest.raises(ValueError, match="signed seconds"):
+            parse_event("clock_step(fast)@1")
+        with pytest.raises(ValueError, match="injects nothing"):
+            parse_event("clock_step(0)@1")
+        with pytest.raises(ValueError, match="instantaneous"):
+            parse_event("clock_step(-45)@1+3")
+
+    def test_named_pressure_scenarios_registered(self):
+        from tpu_pod_exporter_torch.scenario import SCENARIOS
+
+        for name in ("disk_full", "mem_pressure", "scrape_storm"):
+            assert name in SCENARIOS
+            SCENARIOS[name].events()  # timelines parse

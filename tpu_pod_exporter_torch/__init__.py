@@ -29,6 +29,13 @@ same relative path:
   above the nodes: slice rollups (the GPU family as ``family="gpu"``), the
   leaf/root/replica tree, the federated query plane, the root's store,
   streams and alerts, and the node and tree doctor;
+- ``scenario.py``, ``loadgen/scenario.py``, ``fuzz.py``,
+  ``loadgen/fleet.py`` and ``pressure_demo.py`` — the drills: timelines,
+  the invariant-checked scenario engine, the fuzzer and the fleet,
+  shard, dashboard and pressure demos, on simulated nodes;
+- ``backend/libtpu.py`` — the TPU runtime-metrics gRPC backend
+  (``--backend libtpu``); ``probe.py`` — what NVML (or that service)
+  serves; ``tunnelwatch.py`` — the card's liveness watch;
 - the exporter core (collector, registry, server, history, …) and the
   fleet plane, copied from the JAX package with only the package name
   changed, so that the port holds no import of it.

@@ -29,9 +29,9 @@ from tpu_pod_exporter_torch.topology import detect_host_topology
 log = logging.getLogger("tpu_pod_exporter_torch.app")
 
 
-# Backends whose modules this package does not carry yet: selecting one
-# fails at construction rather than being ignored.
-UNPORTED_BACKENDS = ("jax", "libtpu")
+# Backends whose modules this package does not carry: selecting one fails
+# at construction rather than being ignored.
+UNPORTED_BACKENDS = ("jax",)
 
 
 def build_backend(cfg: ExporterConfig) -> DeviceBackend:
@@ -77,6 +77,10 @@ def _build_named_backend(choice: str, cfg: ExporterConfig) -> DeviceBackend:
         from tpu_pod_exporter_torch.backend.torchdev import TorchCudaBackend
 
         return TorchCudaBackend()
+    if choice == "libtpu":
+        from tpu_pod_exporter_torch.backend.libtpu import LibtpuMetricsBackend
+
+        return LibtpuMetricsBackend(addr=cfg.libtpu_metrics_addr)
     if choice == "nvml":
         from tpu_pod_exporter_torch.backend.nvml import (
             NvmlBackend,
@@ -98,7 +102,7 @@ def _build_named_backend(choice: str, cfg: ExporterConfig) -> DeviceBackend:
         return NvmlBackend(driver=driver)
     if choice in UNPORTED_BACKENDS:
         raise ValueError(f"backend {choice!r} is not yet ported to "
-                         "tpu_pod_exporter_torch (use nvml, torch or fake)")
+                         "tpu_pod_exporter_torch (use nvml, torch, libtpu or fake)")
     raise ValueError(f"unknown backend: {choice}")
 
 

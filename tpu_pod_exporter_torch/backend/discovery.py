@@ -34,6 +34,46 @@ def _scan(root: str) -> list[tuple[int, str]]:
     return sorted(nodes)
 
 
+_NUM = re.compile(r"^\d+$")
+
+
+def list_tpu_device_paths(root: str = "/") -> list[str]:
+    """Paths of local TPU device nodes, sorted by chip index: what the
+    libtpu backend keys its chips by, never ``/dev/nvidia*``. The TPU
+    host's scan: ``/dev/accel<digits>``; vfio numeric nodes only when zero
+    accel nodes exist (on accel platforms, unrelated vfio groups must not
+    inflate the chip count); last, the sysfs accel class."""
+    dev = os.path.join(root, "dev")
+    accel: list[tuple[int, str]] = []
+    try:
+        for name in os.listdir(dev):
+            if name.startswith("accel") and _NUM.match(name[5:]):
+                accel.append((int(name[5:]), f"/dev/{name}"))
+    except OSError:
+        pass
+    if accel:
+        return [p for _, p in sorted(accel)]
+    vfio: list[tuple[int, str]] = []
+    try:
+        for name in os.listdir(os.path.join(dev, "vfio")):
+            if _NUM.match(name):
+                vfio.append((int(name), f"/dev/vfio/{name}"))
+    except OSError:
+        pass
+    if vfio:
+        return [p for _, p in sorted(vfio)]
+    # Last resort: sysfs. Pods sometimes get /sys mounted but not raw /dev
+    # nodes; the accel class still names the chips.
+    sysfs: list[tuple[int, str]] = []
+    try:
+        for name in os.listdir(os.path.join(root, "sys", "class", "accel")):
+            if name.startswith("accel") and _NUM.match(name[5:]):
+                sysfs.append((int(name[5:]), f"/dev/{name}"))
+    except OSError:
+        pass
+    return [p for _, p in sorted(sysfs)]
+
+
 def list_device_paths(root: str = "/") -> list[str]:
     """Paths of local GPU device nodes, sorted by minor number."""
     return [p for _, p in _scan(root)]

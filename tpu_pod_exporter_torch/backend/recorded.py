@@ -40,18 +40,12 @@ from tpu_pod_exporter_torch.backend import (
     HostSample,
     IciLinkSample,
 )
-
-
 # Same numeric-first link ordering the live libtpu backend emits: replay
 # must be ORDER-faithful too, or numeric ids >= 10 come back
 # lexicographically shuffled and the collector's layout fast path sees a
-# different link sequence than the backend being reproduced. (Own copy of
-# tpu_pod_exporter/backend/libtpu.py:_link_sort_key; libtpu is not ported.)
-def _link_sort_key(item: tuple[str, float]):
-    try:
-        return (0, int(item[0]))
-    except ValueError:
-        return (1, item[0])
+# different link sequence than the backend being reproduced. (Safe import:
+# libtpu defers its grpc import to construction.)
+from tpu_pod_exporter_torch.backend.libtpu import _link_sort_key
 
 
 def sample_to_dict(sample: HostSample) -> dict:

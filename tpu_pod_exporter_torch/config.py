@@ -21,7 +21,7 @@ class ExporterConfig:
     port: int = 8000
     host: str = "0.0.0.0"
     interval_s: float = 1.0
-    backend: str = "auto"          # auto | fake | torch | recorded | nvml
+    backend: str = "auto"          # auto | fake | torch | libtpu | recorded | nvml
     attribution: str = "auto"      # auto | fake | podresources | checkpoint | none
     resource_name: str = "google.com/tpu"
     # Kubelet resource name GPU-family backends join attribution on (the

@@ -14,9 +14,9 @@ Three phases against a live exporter scraped over real HTTP:
 
 Assertions: device memory used rises under load and falls after release;
 utilization responds when the backend reports it (NVML does; the torch
-backend does not, and the artifact says so). The JAX package also probes
-the libtpu metrics service; that probe has no counterpart on a GPU, and the
-artifact records ``"probe": "not ported"``.
+backend does not, and the artifact says so). The artifact also records
+what the NVIDIA driver's NVML serves (``probe.probe_nvml``) under
+``"probe"``, as the JAX package records its libtpu metrics service.
 
 ``--backend nvml`` reads the whole card through NVML, as a DaemonSet does;
 ``--backend torch`` reads this process's allocator. For the gpu family each
@@ -228,9 +228,7 @@ def run_check(
     app = ExporterApp(cfg)
     family = getattr(app.backend, "family", "tpu")
     report: dict = {"backend": backend, "family": family, "phases": {},
-                    "checks": {}, "ok": False,
-                    # The libtpu metrics-service probe has no GPU counterpart.
-                    "probe": "not ported"}
+                    "checks": {}, "ok": False}
     app.start()
     try:
         base = f"http://127.0.0.1:{app.port}"
@@ -277,6 +275,18 @@ def run_check(
         report["ok"] = all(v is not False for v in checks.values())
     finally:
         app.stop()
+
+    # Record what the card's NVML actually serves (the ground-truth half of
+    # the artifact; unreachable is itself a finding).
+    try:
+        from tpu_pod_exporter_torch.probe import probe_nvml
+
+        report["probe"] = probe_nvml()
+    except Exception as e:  # noqa: BLE001 — the probe must not fail the check
+        # Same shape as the success case so artifact consumers never fork.
+        report["probe"] = {"runtime": "nvml", "library": "libnvidia-ml.so.1",
+                           "reachable": False, "count": None,
+                           "devices": [], "supported": [], "errors": {"<probe>": str(e)}}
     return report
 
 
