@@ -119,6 +119,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                demo, the dashboard demo (at the CI workflow's scale) and
                its negative control. Prints each drill's seconds and
                verdict.
+16. lint      — the port's exporter-lint on its own tree: ``python -m
+               tpu_pod_exporter_torch.analysis --format json`` finds
+               nothing (counts by rule, seconds), ``--demo`` catches all
+               seven seeded families, ``--lock-graph``/``--fork-inventory``
+               regenerate the committed ``analysis/reviewed/`` artifacts
+               byte for byte, and the port's graph holds every edge of the
+               JAX package's ``deploy/lock-graph.json``. Then a child
+               process installs the port's lock and loop witnesses before
+               it imports the rest of the port and runs hwcheck's closed
+               loop at phase 5's full size on the torch backend and at
+               phase 12's on the NVML backend (the same checks, every
+               launch on wgmma); ``--check-witness`` and
+               ``--check-loop-witness`` on its dumps exit 0, and the card's
+               own locks (the kernel library's, the NVML init lock) are
+               among the witnessed sites. Prints the sites, acquisitions,
+               edges, longest hold, loop callbacks and slowest callback.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -309,6 +325,45 @@ DRILL_TIMEOUT_S = 420
 # many chips (used, total) and duty cycle.
 LIBTPU_FIXTURE = REPO / "tests" / "fixtures" / "libtpu-metrics.json"
 LIBTPU_CHIPS = 4
+# The lint phase: the port's exporter-lint, its reviewed artifacts, and the
+# JAX package's committed lock graph whose every edge (renamed) the port's
+# static graph must hold.
+LINT_REVIEWED = REPO / "tpu_pod_exporter_torch" / "analysis" / "reviewed"
+LINT_REFERENCE_GRAPH = REPO / "deploy" / "lock-graph.json"
+LINT_TIMEOUT_S = 240
+# Locks only the card's path takes, by (file, statement that creates it):
+# the kernel library's build-and-load lock and the NVML backend's init lock
+# (held around every call into the ctypes driver).
+LINT_CARD_LOCKS = (("tpu_pod_exporter_torch/kernels/tanh_matmul.py", "_lock = threading.Lock()"),
+                   ("tpu_pod_exporter_torch/backend/nvml.py",
+                    "lock: threading.Lock = field(default_factory=threading.Lock)"))
+# The witnessed child: installs the port's lock and loop witnesses before it
+# imports any other module of the port, runs hwcheck's closed loop once per
+# run of the spec (argv[1], JSON), dumps both witnesses into the spec's
+# directory and prints one JSON line with its pid, the reports and its
+# tanh_matmul launches by kernel.
+LINT_CHILD = """
+import json, os, sys
+from tpu_pod_exporter_torch.analysis import witness
+
+locks = witness.LockWitness().install()
+loop = witness.LoopWitness().install()
+from tpu_pod_exporter_torch import hwcheck
+from tpu_pod_exporter_torch.kernels import tanh_matmul as tm
+
+spec = json.loads(sys.argv[1])
+reports = []
+for run in spec["runs"]:
+    stim = None if run["stimulus"] is None else hwcheck.TorchStimulus(**run["stimulus"])
+    report = hwcheck.run_check(backend=run["backend"], idle_s=2.0, load_s=8.0,
+                               stimulus=stim, exporter_args=run["exporter_args"])
+    report["burn_steps"] = 0 if stim is None else stim.steps
+    reports.append(report)
+locks.dump(os.path.join(spec["out"], "lock-witness.json"))
+loop.dump(os.path.join(spec["out"], "loop-witness.json"))
+print(json.dumps({"pid": os.getpid(), "reports": reports, "launches": tm.tanh_matmul.launches,
+                  "launches_by_kernel": tm.tanh_matmul.launches_by_kernel}))
+"""
 
 
 def emit(phase: str, **fields) -> None:
@@ -469,6 +524,21 @@ def phase_workload(dev, tm, wl) -> None:
          clocks_sm_power_draw=clocks_power)
 
 
+def check_torch_loop(report: dict, label: str) -> None:
+    """hwcheck's artifact on the torch backend under the fill and the burn:
+    memory rises by at least the fill and falls after."""
+    checks = report["checks"]
+    if not (report["ok"] and checks["hbm_rises_under_load"]
+            and checks["hbm_falls_after_release"]):
+        raise AssertionError(f"{label} failed: {checks}")
+    if report["family"] != "gpu" or report["phases"]["load"]["hbm_total_bytes"] <= 0:
+        raise AssertionError(f"{label} did not read gpu_hbm_* series")
+    rise = (report["phases"]["load"]["hbm_used_bytes"]
+            - report["phases"]["idle"]["hbm_used_bytes"])
+    if rise < FILL_BYTES:
+        raise AssertionError(f"{label}: gpu_hbm_used_bytes rose {rise} B, less than the fill")
+
+
 def phase_closed_loop(dev, tm, hwcheck, uuid: str) -> dict:
     stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
                                  batch=BATCH, iters=ITERS, device=dev)
@@ -479,16 +549,7 @@ def phase_closed_loop(dev, tm, hwcheck, uuid: str) -> dict:
     by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
     emit("closed_loop", report=report, launches=launches,
          launches_by_kernel=by_kernel, burn_steps=stim.steps)
-    checks = report["checks"]
-    if not (report["ok"] and checks["hbm_rises_under_load"]
-            and checks["hbm_falls_after_release"]):
-        raise AssertionError(f"closed loop failed: {checks}")
-    if report["family"] != "gpu" or report["phases"]["load"]["hbm_total_bytes"] <= 0:
-        raise AssertionError("closed loop did not read gpu_hbm_* series")
-    rise = (report["phases"]["load"]["hbm_used_bytes"]
-            - report["phases"]["idle"]["hbm_used_bytes"])
-    if rise < FILL_BYTES:
-        raise AssertionError(f"gpu_hbm_used_bytes rose {rise} B, less than the fill")
+    check_torch_loop(report, "closed loop")
     if launches <= 0:
         raise AssertionError("no tanh_matmul launch during the load phase")
     check_all_wgmma(tm, "closed loop", launches)
@@ -897,6 +958,35 @@ def kubelet_fixture(tmp: str, uuid: str) -> dict:
             "uid_map_file": str(uids)}
 
 
+def check_nvml_loop(report: dict, pid: int, label: str) -> None:
+    """hwcheck's artifact on the NVML backend (process metrics, legacy
+    metrics, the kubelet fixture's pod) under the fill and the burn: the
+    card's memory rises by the fill and falls, its utilization rises, the
+    process rows sum to the fill, ``pid`` holds the card, the pod's memory
+    rises by the fill and the reference's {pid, pod} series is there."""
+    idle, load = report["phases"]["idle"], report["phases"]["load"]
+    checks = report["checks"]
+    if not (report["ok"] and report["family"] == "gpu" and checks["hbm_rises_under_load"]
+            and checks["hbm_falls_after_release"] and checks["duty_cycle_responds"]):
+        raise AssertionError(f"{label} failed: {checks}")
+    rise = load["hbm_used_bytes"] - idle["hbm_used_bytes"]
+    if rise < FILL_BYTES:
+        raise AssertionError(f"{label}: gpu_hbm_used_bytes rose {rise} B, less than the fill")
+    if sum(load["process_memory_bytes"].values()) < FILL_BYTES:
+        raise AssertionError(f"{label}: process rows {load['process_memory_bytes']} "
+                             "sum under the fill")
+    if str(pid) not in load["holder_pids"]:
+        raise AssertionError(f"{label}: pid {pid} not among holders {load['holder_pids']}")
+    pod_rise = (load["pod_memory_bytes"].get(SMOKE_POD, 0.0)
+                - idle["pod_memory_bytes"].get(SMOKE_POD, 0.0))
+    if pod_rise < FILL_BYTES:
+        raise AssertionError(f"{label}: gpu_pod_memory_used_bytes{{pod={SMOKE_POD}}} "
+                             f"rose {pod_rise} B")
+    if not any(key.endswith("/" + SMOKE_POD) for key in load["legacy_pod_memory_bytes"]):
+        raise AssertionError(f"{label}: no pod_gpu_memory_usage for {SMOKE_POD}: "
+                             f"{load['legacy_pod_memory_bytes']}")
+
+
 def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
     """The GPU node path on the card. Returns the launches by kernel of its
     closed loop and the NVML probe its hwcheck artifact carries."""
@@ -943,25 +1033,7 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
     by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
     emit("nvml_closed_loop", report=report, pid=os.getpid(), launches_by_kernel=by_kernel,
          burn_steps=stim.steps)
-    idle, load = report["phases"]["idle"], report["phases"]["load"]
-    checks = report["checks"]
-    if not (report["ok"] and report["family"] == "gpu" and checks["hbm_rises_under_load"]
-            and checks["hbm_falls_after_release"] and checks["duty_cycle_responds"]):
-        raise AssertionError(f"nvml closed loop failed: {checks}")
-    rise = load["hbm_used_bytes"] - idle["hbm_used_bytes"]
-    if rise < FILL_BYTES:
-        raise AssertionError(f"gpu_hbm_used_bytes rose {rise} B, less than the fill")
-    if sum(load["process_memory_bytes"].values()) < FILL_BYTES:
-        raise AssertionError(f"process rows {load['process_memory_bytes']} sum under the fill")
-    if str(os.getpid()) not in load["holder_pids"]:
-        raise AssertionError(f"pid {os.getpid()} not among holders {load['holder_pids']}")
-    pod_rise = (load["pod_memory_bytes"].get(SMOKE_POD, 0.0)
-                - idle["pod_memory_bytes"].get(SMOKE_POD, 0.0))
-    if pod_rise < FILL_BYTES:
-        raise AssertionError(f"gpu_pod_memory_used_bytes{{pod={SMOKE_POD}}} rose {pod_rise} B")
-    if not any(key.endswith("/" + SMOKE_POD) for key in load["legacy_pod_memory_bytes"]):
-        raise AssertionError(f"no pod_gpu_memory_usage for {SMOKE_POD}: "
-                             f"{load['legacy_pod_memory_bytes']}")
+    check_nvml_loop(report, os.getpid(), "nvml closed loop")
     if tm.tanh_matmul.launches <= 0:
         raise AssertionError("no tanh_matmul launch during the nvml load phase")
     check_all_wgmma(tm, "nvml closed loop", tm.tanh_matmul.launches)
@@ -2258,6 +2330,167 @@ def phase_drills(dev, uuid: str, hwcheck_probe: dict) -> None:
         raise errors[0]
 
 
+def run_lint(*args: str) -> subprocess.Popen:
+    """The port's exporter-lint CLI as a subprocess (output piped)."""
+    proc = subprocess.Popen([sys.executable, "-m", "tpu_pod_exporter_torch.analysis", *args],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    proc.started = time.monotonic()
+    return proc
+
+
+def finish(procs: dict) -> dict:
+    """Wait for the named lint subprocesses side by side:
+    {name: (rc, output, seconds from its start to its exit)}."""
+    import threading
+
+    out = {}
+
+    def wait(name: str, proc: subprocess.Popen) -> None:
+        try:
+            text, _ = proc.communicate(timeout=LINT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            text += f"\n(killed after {LINT_TIMEOUT_S} s)"
+        out[name] = (proc.returncode, text, time.monotonic() - proc.started)
+
+    threads = [threading.Thread(target=wait, args=item, name=f"lint-{item[0]}", daemon=True)
+               for item in procs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def card_lock_sites() -> list:
+    """The witness sites (``path:line``) of :data:`LINT_CARD_LOCKS`."""
+    sites = []
+    for rel, statement in LINT_CARD_LOCKS:
+        lines = (REPO / rel).read_text().splitlines()
+        (line,) = [i for i, text in enumerate(lines, 1) if text.strip() == statement]
+        sites.append(f"{rel}:{line}")
+    return sites
+
+
+def lint_static(tmp: str) -> None:
+    """Phase 16a: the static lint is clean, the demo catches every seeded
+    family, the regenerated artifacts equal the committed ones, and the
+    static graph holds every edge of the JAX package's committed graph."""
+    from tpu_pod_exporter_torch.analysis.rules import ALL_RULES
+
+    art = {"lock-graph.json": os.path.join(tmp, "lock-graph.json"),
+           "lock-graph.dot": os.path.join(tmp, "lock-graph.dot"),
+           "fork-inventory.json": os.path.join(tmp, "fork-inventory.json")}
+    done = finish({
+        "lint": run_lint("--format", "json"),
+        "demo": run_lint("--demo"),
+        "artifacts": run_lint("--lock-graph", art["lock-graph.json"],
+                              "--lock-graph-dot", art["lock-graph.dot"],
+                              "--fork-inventory", art["fork-inventory.json"]),
+    })
+    for name, (rc, text, _) in done.items():
+        if rc != 0:
+            raise AssertionError(f"lint: {name} exited {rc}:\n{text[-4000:]}")
+    rc, text, seconds = done["lint"]
+    doc = json.loads(text)
+    by_rule = {rule.name: 0 for rule in ALL_RULES}
+    for finding in doc["findings"]:
+        by_rule[finding["rule"]] = by_rule.get(finding["rule"], 0) + 1
+    emit("lint_static", findings=len(doc["findings"]), by_rule=by_rule,
+         baseline_suppressed=doc["baseline_suppressed"], seconds=seconds)
+    if doc["findings"] or doc["baseline_suppressed"]:
+        raise AssertionError(f"lint: {doc['findings']}")
+    demo = done["demo"][1]
+    caught = re.search(r"all seeded violations caught \(([^)]*)\)", demo)
+    families = caught.group(1).split(", ") if caught else []
+    emit("lint_demo", caught=families, seconds=done["demo"][2])
+    if len(families) != 7:
+        raise AssertionError(f"lint demo: {demo[-4000:]}")
+    stale = [name for name, path in art.items()
+             if Path(path).read_bytes() != (LINT_REVIEWED / name).read_bytes()]
+    graph = json.loads(Path(art["lock-graph.json"]).read_text())
+    edges = {(e["from"], e["to"]) for e in graph["edges"]}
+    reference = {(e["from"], e["to"]) for e in json.loads(LINT_REFERENCE_GRAPH.read_text())["edges"]}
+    emit("lint_artifacts", locks=len(graph["locks"]), edges=sorted(edges),
+         reference_edges=sorted(reference), stale=stale, seconds=done["artifacts"][2])
+    if stale:
+        raise AssertionError(f"lint: regenerated {stale} differ from analysis/reviewed/")
+    if not reference <= edges:
+        raise AssertionError(f"lint: the port's graph lacks {sorted(reference - edges)}")
+
+
+def phase_lint(uuid: str) -> dict:
+    """Phase 16: the port's exporter-lint on its own tree, then hwcheck's
+    closed loop at full size on the torch and NVML backends in a child
+    process under the port's lock and loop witnesses, each dump checked
+    against the static model. Returns the child's launches by kernel."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        lint_static(tmp)
+        stimulus = {"hbm_bytes": FILL_BYTES, "width": WIDTH, "depth": DEPTH,
+                    "batch": BATCH, "iters": ITERS}
+        spec = {"out": tmp, "runs": [
+            {"backend": "torch", "stimulus": stimulus, "exporter_args": {}},
+            {"backend": "nvml", "stimulus": stimulus,
+             "exporter_args": {"process_metrics": True, "legacy_metrics": True,
+                               **kubelet_fixture(tmp, uuid)}},
+        ]}
+        t_child = time.monotonic()
+        child = subprocess.run([sys.executable, "-c", LINT_CHILD, json.dumps(spec)], cwd=REPO,
+                               capture_output=True, text=True, timeout=LINT_TIMEOUT_S)
+        child_s = time.monotonic() - t_child
+        if child.returncode != 0:
+            raise AssertionError(f"lint: the witnessed child exited {child.returncode}:\n"
+                                 f"{child.stdout[-3000:]}{child.stderr[-3000:]}")
+        result = json.loads(child.stdout.strip().splitlines()[-1])
+        torch_report, nvml_report = result["reports"]
+        by_kernel = result["launches_by_kernel"]
+        emit("lint_witness_loop", seconds=child_s, pid=result["pid"],
+             launches=result["launches"], launches_by_kernel=by_kernel,
+             burn_steps=[r["burn_steps"] for r in result["reports"]],
+             checks={"torch": torch_report["checks"], "nvml": nvml_report["checks"]})
+        check_torch_loop(torch_report, "witnessed torch closed loop")
+        check_nvml_loop(nvml_report, result["pid"], "witnessed nvml closed loop")
+        if not (result["launches"] > 0 and by_kernel["wgmma"] == result["launches"]
+                and by_kernel["wmma"] == 0):
+            raise AssertionError(f"lint: the child's launches {result['launches']}, "
+                                 f"by kernel {by_kernel}")
+        lock_dump = os.path.join(tmp, "lock-witness.json")
+        loop_dump = os.path.join(tmp, "loop-witness.json")
+        done = finish({"check_witness": run_lint("--check-witness", lock_dump),
+                       "check_loop_witness": run_lint("--check-loop-witness", loop_dump)})
+        locks = json.loads(Path(lock_dump).read_text())
+        loop = json.loads(Path(loop_dump).read_text())
+    holds = locks["max_hold_ms"]
+    longest = max(holds, key=holds.get) if holds else None
+    slowest = max(loop["callbacks"], key=lambda c: c["max_ms"], default=None)
+    sites = {lk["site"]: lk for lk in locks["locks"]}
+    card_sites = {site: sites.get(site, {}).get("acquired") for site in card_lock_sites()}
+    emit("lint_witness", lock_sites=len(sites), acquisitions=locks["meta"]["acquisitions"],
+         edges=[{"from": e["from"], "to": e["to"], "count": e["count"]} for e in locks["edges"]],
+         inversions=len(locks["inversions"]), long_holds=len(locks["long_holds"]),
+         longest_hold_ms=holds.get(longest), longest_hold_site=longest,
+         card_lock_acquisitions=card_sites,
+         loop_callbacks=loop["meta"]["callbacks"],
+         loop_callback_runs=sum(c["count"] for c in loop["callbacks"]),
+         slowest_callback_ms=slowest and slowest["max_ms"],
+         slowest_callback=slowest and f"{slowest['module']}.{slowest['qualname']}",
+         stalls=loop["meta"]["stalls"],
+         check_witness_rc=done["check_witness"][0],
+         check_loop_witness_rc=done["check_loop_witness"][0])
+    for name, (rc, text, _) in done.items():
+        if rc != 0:
+            raise AssertionError(f"lint: {name} exited {rc}:\n{text[-4000:]}")
+    if not all(card_sites.values()):
+        raise AssertionError(f"lint: card-only locks not witnessed: {card_sites}")
+    emit("lint", seconds=time.monotonic() - t_phase)
+    return by_kernel
+
+
 def main() -> int:
     from tpu_pod_exporter_torch import hwcheck, nativelib
     from tpu_pod_exporter_torch.kernels import online_softmax as osm
@@ -2313,15 +2546,16 @@ def main() -> int:
     fleet = phase_fleet(dev, tm, hwcheck, uuid)
     torch.cuda.empty_cache()
     phase_drills(dev, uuid, hwcheck_probe)
+    lint = phase_lint(uuid)
 
     # Launches on the main paths: the closed loop, the training run, the
-    # collective programs, the NVML closed loop, the node state phase and
-    # the fleet phase.
+    # collective programs, the NVML closed loop, the node state phase, the
+    # fleet phase and the lint phase's witnessed closed loop.
     names = (*SOURCES, "sgd", "online_softmax")
     by_path = {kernel: {"closed_loop": closed_loop.get(kernel, 0),
                         "train": train.get(kernel, 0), "parallel": parallel[kernel],
                         "nvml": nvml.get(kernel, 0), "node_state": node_state.get(kernel, 0),
-                        "fleet": fleet.get(kernel, 0)}
+                        "fleet": fleet.get(kernel, 0), "lint_witness": lint.get(kernel, 0)}
                for kernel in names}
     kernels = [{
         "name": tm.ENTRIES[kernel],
