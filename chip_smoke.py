@@ -135,6 +135,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
                own locks (the kernel library's, the NVML init lock) are
                among the witnessed sites. Prints the sites, acquisitions,
                edges, longest hold, loop callbacks and slowest callback.
+17. deploy    — the port as deploy/gpu/ ships it, on the card's host: the
+               image's build stage as deploy/gpu/Dockerfile writes it (the
+               wheel built offline from a copy of what it copies, libtpumon
+               with its g++ line), the runtime stage as the wheel unpacked
+               read-only with TPE_NATIVE_LIB on that library; then the
+               DaemonSet's container (deploy/gpu/daemonset.yaml: its
+               entrypoint, args and env, with only host paths, the port
+               and the node name rewritten) and the aggregator manifest's
+               container (its command, with --targets on that exporter)
+               started from there under a finder that refuses torch, jax
+               and triton. While this process holds the 16 GiB fill and the
+               full-size burn: both probe paths answer 200, the card's
+               gpu_hbm_used_bytes rises by the fill and falls after, the
+               aggregator's pool rollup rises with it, the native renderer
+               is the library TPE_NATIVE_LIB names, the exporter's peak RSS
+               stays under the manifest's memory limit (its CPU seconds a
+               second printed beside the CPU limit), both drain on SIGTERM
+               with exit 0 inside terminationGracePeriodSeconds, and the
+               unpacked wheel is unchanged.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -364,6 +383,59 @@ loop.dump(os.path.join(spec["out"], "loop-witness.json"))
 print(json.dumps({"pid": os.getpid(), "reports": reports, "launches": tm.tanh_matmul.launches,
                   "launches_by_kernel": tm.tanh_matmul.launches_by_kernel}))
 """
+# The deploy phase: the GPU image, DaemonSet and fleet manifests, and what
+# the emulation refuses to import (the image installs the wheel without the
+# torch extra). The exporter and the aggregator each get this long to serve.
+DEPLOY_DIR = REPO / "deploy" / "gpu"
+DEPLOY_REFUSED = ("torch", "jax", "triton")
+DEPLOY_START_S = 60
+# The exporter's resident set is sampled this often: gVisor's /proc has no
+# VmHWM, and a child's ru_maxrss keeps the forking parent's peak across exec.
+DEPLOY_RSS_EVERY_S = 0.02
+# A container started from the unpacked wheel (argv: site, "script" or
+# "module", the console script or module, its arguments): the finder goes
+# first, so a refused import raises. Prints one JSON line with the
+# package's file and the library nativelib loaded, runs the entry point as
+# the image would, and at exit one JSON line with every refused import it
+# was asked for and any refused module found loaded.
+DEPLOY_BOOTSTRAP = """
+import configparser, glob, importlib, importlib.abc, json, os, runpy, sys
+
+REFUSED = %r
+attempts = []
+
+
+class NotInImage(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            attempts.append(name)
+            raise ImportError(f"{name} is not in the image")
+        return None
+
+
+sys.meta_path.insert(0, NotInImage())
+site, kind, entry, *args = sys.argv[1:]
+sys.path.insert(0, site)
+import tpu_pod_exporter_torch
+from tpu_pod_exporter_torch import nativelib
+
+lib = nativelib.load()
+print(json.dumps({"package": tpu_pod_exporter_torch.__file__,
+                  "native_lib": lib._name if lib else None}), flush=True)
+try:
+    sys.argv = [entry, *args]
+    if kind == "script":
+        scripts = configparser.ConfigParser()
+        scripts.read(glob.glob(os.path.join(site, "*.dist-info", "entry_points.txt")))
+        module, func = scripts["console_scripts"][entry].split(":")
+        sys.exit(getattr(importlib.import_module(module), func)())
+    runpy.run_module(entry, run_name="__main__", alter_sys=True)
+finally:
+    print(json.dumps({
+        "refused_attempts": attempts,
+        "refused_loaded": sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)}),
+        flush=True)
+""" % (DEPLOY_REFUSED,)
 
 
 def emit(phase: str, **fields) -> None:
@@ -2491,6 +2563,456 @@ def phase_lint(uuid: str) -> dict:
     return by_kernel
 
 
+def kube_quantity(text: str) -> float:
+    """A Kubernetes quantity as a number: bytes for memory ("256Mi"), cores
+    for CPU ("200m")."""
+    for suffix, scale in (("Ki", 1 << 10), ("Mi", 1 << 20), ("Gi", 1 << 30), ("m", 1e-3)):
+        if text.endswith(suffix):
+            return float(text[:-len(suffix)]) * scale
+    return float(text)
+
+
+def deploy_container(manifest: str, kind: str, name: str) -> tuple[dict, dict]:
+    """(pod spec, first container) of the ``kind`` object ``name`` in
+    ``deploy/gpu/<manifest>``."""
+    import yaml
+
+    (obj,) = [d for d in yaml.safe_load_all((DEPLOY_DIR / manifest).read_text())
+              if d and d["kind"] == kind and d["metadata"]["name"] == name]
+    pod = obj["spec"]["template"]["spec"]
+    return pod, pod["containers"][0]
+
+
+def dockerfile_stages(path: Path = DEPLOY_DIR / "Dockerfile") -> list:
+    """The Dockerfile's stages, each a list of (instruction, argument text)
+    with continuation lines joined and comments dropped."""
+    stages: list = []
+    logical = ""
+    for line in path.read_text().splitlines():
+        if not logical and (not line.strip() or line.lstrip().startswith("#")):
+            continue
+        logical += line.rstrip()
+        if logical.endswith("\\"):
+            logical = logical[:-1] + " "
+            continue
+        instruction, _, rest = logical.strip().partition(" ")
+        if instruction.upper() == "FROM":
+            stages.append([])
+        stages[-1].append((instruction.upper(), " ".join(rest.split())))
+        logical = ""
+    return stages
+
+
+def build_context(dst: Path) -> Path:
+    """Copy what the Dockerfile's build stage copies from the repo (its COPY
+    sources, to their destinations under ``/src``) into ``dst``; return
+    where ``/src`` landed. Only the interpreter's caches stay behind: build
+    outputs such as ``_build/`` go along, as into a docker build without a
+    .dockerignore, so the wheel has to leave them out itself."""
+    import shutil
+
+    src = dst / "src"
+    for instruction, text in dockerfile_stages()[0]:
+        if instruction != "COPY":
+            continue
+        *sources, target = text.split()
+        for source in sources:
+            path, at = REPO / source, src / target.removeprefix("/src").lstrip("/")
+            if path.is_dir():
+                shutil.copytree(path, at, ignore=shutil.ignore_patterns("__pycache__"))
+                continue
+            if target.endswith("/"):
+                at = at / path.name
+            at.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(path, at)
+    return src
+
+
+def build_image(src: Path, tmp: Path) -> dict:
+    """The image's two stages on this host, from :func:`build_context`'s
+    copy. Build stage: its g++ line as written (``/src`` moved to ``src``)
+    beside the wheel, built offline by ``pip wheel`` where the stage runs
+    ``python -m build`` (which fetches its build dependencies); the
+    stage's apt-get is this host's g++. Runtime stage: the wheel unpacked
+    into ``tmp/site`` (``pip install`` without extras installs its files
+    and no torch) and made read-only, the library copied to its
+    destination under ``tmp``, ENV paths moved under ``tmp``, the
+    ENTRYPOINT read. Any other instruction fails, so the emulation cannot
+    drift from the Dockerfile."""
+    import shlex
+    import shutil
+    import zipfile
+
+    build, runtime = dockerfile_stages()
+    dist = tmp / "dist"
+    procs = []
+    t0 = time.monotonic()
+    for instruction, text in build:
+        if instruction in ("FROM", "COPY") or text.startswith("apt-get "):
+            continue
+        if instruction == "RUN" and text.startswith("g++ "):
+            argv = [a.replace("/src", str(src)) for a in shlex.split(text)]
+        elif instruction == "RUN" and "python -m build --wheel" in text:
+            argv = [sys.executable, "-m", "pip", "wheel", "--no-build-isolation", "--no-deps",
+                    "--no-index", "--disable-pip-version-check", "-w", str(dist), str(src)]
+        else:
+            raise AssertionError(f"deploy: the build stage's {instruction} {text} is not emulated")
+        procs.append(subprocess.Popen(argv, cwd=src, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    for proc in procs:
+        out, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"deploy: {proc.args[:3]} exited {proc.returncode}:\n"
+                                 f"{out[-3000:]}")
+    build_s = time.monotonic() - t0
+    (wheel,) = dist.glob("*.whl")
+    image = {"site": tmp / "site", "wheel": wheel, "lib": None, "env": {}, "entrypoint": None,
+             "build_s": build_s}
+    for instruction, text in runtime:
+        if instruction == "COPY" and text.startswith("--from=build /dist/"):
+            with zipfile.ZipFile(wheel) as whl:
+                whl.extractall(image["site"])
+        elif instruction == "COPY" and text.startswith("--from=build "):
+            source, target = text.split()[1:]
+            image["lib"] = tmp / target.lstrip("/")
+            image["lib"].parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(source.replace("/src", str(src)), image["lib"])
+        elif instruction == "ENV":
+            key, _, value = text.partition("=")
+            image["env"][key] = str(tmp / value.lstrip("/")) if value.startswith("/") else value
+        elif instruction == "ENTRYPOINT":
+            (image["entrypoint"],) = json.loads(text)
+        elif not (instruction == "FROM" or text.startswith("pip install --no-cache-dir /tmp/")):
+            raise AssertionError(f"deploy: the runtime stage's {instruction} {text} "
+                                 "is not emulated")
+    for path in [image["site"], *image["site"].rglob("*")]:
+        path.chmod(path.stat().st_mode & ~0o222)
+    return image
+
+
+def tree_state(root: Path) -> dict:
+    """{relative path: (size, mtime)} of everything under ``root``."""
+    return {str(p.relative_to(root)): (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in root.rglob("*")}
+
+
+def container_argv(container: dict, tmp: Path, port: int,
+                   targets: str | None = None) -> tuple[list, list]:
+    """The container's args on this host: every absolute path moves under
+    ``tmp``, ``--port`` (added where the manifest keeps the default) to
+    ``port``, and ``--targets`` to ``targets``. Returns (args, rewrites)."""
+    args, rewrites = [], []
+    for arg in container.get("args", []):
+        flag, eq, value = arg.partition("=")
+        new = value
+        if flag == "--port":
+            new = str(port)
+        elif flag == "--targets" and targets is not None:
+            new = targets
+        elif value.startswith("/"):
+            new = str(tmp / value.lstrip("/"))
+        if new != value:
+            rewrites.append({"arg": flag, "manifest": value, "here": new})
+        args.append(f"{flag}={new}" if eq else arg)
+    if not any(r["arg"] == "--port" for r in rewrites):
+        args.append(f"--port={port}")
+        rewrites.append({"arg": "--port", "manifest": None, "here": str(port)})
+    return args, rewrites
+
+
+def container_env(container: dict, image_env: dict) -> tuple[dict, list]:
+    """A container's environment on this host: this process's without
+    PYTHONPATH, the image's ENV, the manifest's env; the downward-API node
+    name is this host's name, and LD_LIBRARY_PATH stays this host's, where
+    its driver is. Returns (env, rewrites)."""
+    import socket
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(image_env)
+    rewrites = []
+    for var in container.get("env", []):
+        name = var["name"]
+        if name == "LD_LIBRARY_PATH":
+            rewrites.append({"env": name, "manifest": var["value"], "here": env.get(name, "")})
+        elif "valueFrom" in var:
+            field = var["valueFrom"]["fieldRef"]["fieldPath"]
+            if field != "spec.nodeName":
+                raise AssertionError(f"deploy: {name} from {field} is not emulated")
+            env[name] = socket.gethostname()
+            rewrites.append({"env": name, "manifest": field, "here": env[name]})
+        else:
+            env[name] = var["value"]
+    return env, rewrites
+
+
+def start_container(image: dict, kind: str, entry: str, args: list, env: dict,
+                    cwd: Path, log: Path) -> subprocess.Popen:
+    """A container's process from the unpacked wheel under the bootstrap
+    (``kind`` "script" for the ENTRYPOINT, "module" for ``python -m``),
+    stdout piped, stderr into ``log``. Waits for the bootstrap's first
+    line and checks it: the package from the wheel, libtpumon the library
+    TPE_NATIVE_LIB names."""
+    with open(log, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-s", "-B", "-c", DEPLOY_BOOTSTRAP, str(image["site"]), kind,
+             entry, *args], cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    line = proc.stdout.readline()
+    if not line:
+        raise AssertionError(f"deploy: {entry} exited {proc.wait()}:\n"
+                             f"{log.read_text(errors='replace')[-3000:]}")
+    proc.started = json.loads(line)
+    if not Path(proc.started["package"]).is_relative_to(image["site"]):
+        raise AssertionError(f"deploy: {entry} imported {proc.started['package']}")
+    if proc.started["native_lib"] != image["env"]["TPE_NATIVE_LIB"]:
+        raise AssertionError(f"deploy: {entry} loaded libtpumon {proc.started['native_lib']}, "
+                             f"not TPE_NATIVE_LIB {image['env']['TPE_NATIVE_LIB']}")
+    return proc
+
+
+def stop_container(proc: subprocess.Popen, grace_s: float) -> dict:
+    """SIGTERM, then SIGKILL after ``grace_s`` as the kubelet would: the
+    exit code, the seconds to exit and the bootstrap's exit line."""
+    import signal
+
+    t0 = time.monotonic()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, _ = proc.communicate(timeout=grace_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    return {"rc": proc.returncode, "drain_s": time.monotonic() - t0,
+            **(lines[-1] if lines else {})}
+
+
+def status_bytes(pid: int) -> dict:
+    """VmRSS, and VmHWM where the kernel keeps it, in bytes."""
+    out = {}
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key in ("VmRSS", "VmHWM"):
+                out[key] = float(value.split()[0]) * 1024
+    return out
+
+
+def rss_by_mapping(pid: int, top: int = 8) -> dict:
+    """A process's resident bytes by what they map (a file, ``[heap]``,
+    ``[anon]``): the ``top`` largest, from /proc/<pid>/smaps."""
+    sizes: dict = {}
+    name = None
+    with open(f"/proc/{pid}/smaps") as f:
+        for line in f:
+            head = line.split()
+            if re.fullmatch(r"[0-9a-f]+-[0-9a-f]+", head[0]):
+                name = head[5] if len(head) > 5 else "[anon]"
+            elif head[0] == "Rss:":
+                sizes[name] = sizes.get(name, 0) + int(head[1]) * 1024
+    return dict(sorted(sizes.items(), key=lambda kv: -kv[1])[:top])
+
+
+def run_deployment(image: dict, tmp: Path, extra_args: tuple = (), load=None,
+                   fill_bytes: int = 0, card_nodes: set | None = None) -> dict:
+    """The DaemonSet's container from the image, then the aggregator's on
+    it. With ``load``: once both serve, start it, wait for the card's
+    ``gpu_hbm_used_bytes`` (the series of ``card_nodes``; None: every
+    series) to rise by ``fill_bytes`` at the exporter and the pool to rise
+    by as much at the aggregator, stop it, wait for the fall. Then SIGTERM
+    both. Returns what it saw."""
+    import threading
+
+    pod, node = deploy_container("daemonset.yaml", "DaemonSet", "gpu-pod-exporter")
+    _, agg = deploy_container("aggregator.yaml", "Deployment", "tpu-slice-aggregator")
+    grace_s = float(pod["terminationGracePeriodSeconds"])
+    probes = {"readiness": node["readinessProbe"]["httpGet"]["path"],
+              "liveness": node["livenessProbe"]["httpGet"]["path"]}
+    node_port, agg_port = free_port(), free_port()
+    node_args, rewrites = container_argv(node, tmp, node_port)
+    node_env, env_rewrites = container_env(node, image["env"])
+    seen = {"rewrites": rewrites + env_rewrites, "grace_s": grace_s,
+            "limits": node["resources"]["limits"], "aggregator_command": agg["command"]}
+    base = f"http://127.0.0.1:{node_port}"
+    logs = {name: tmp / f"{name}.log" for name in ("exporter", "aggregator")}
+    procs: dict = {}
+    loaded = False
+
+    def cards() -> dict:
+        return {s.labels["device_path"]: s.value
+                for s in samples_of(http_get(base + "/metrics")[1], "gpu_hbm_used_bytes")}
+
+    def card_used(ok=lambda used: True) -> list | None:
+        """[the card's used bytes] once it is served and ``ok``, else None."""
+        used = [v for path, v in cards().items() if card_nodes is None or path in card_nodes]
+        return [sum(used)] if used and ok(sum(used)) else None
+
+    def pool() -> tuple | None:
+        table = rollups(parsed(http_get(f"http://127.0.0.1:{agg_port}/metrics")[1]))
+        used = pick(table, "tpu_slice_hbm_used_bytes", family="gpu")
+        chips = pick(table, "tpu_slice_chip_count", family="gpu")
+        return (used, chips) if used is not None and chips == len(seen["cards"]) else None
+
+    def usage() -> dict:
+        cpu, _ = proc_usage(procs["exporter"].pid)
+        return {"t": time.monotonic(), "cpu_s": cpu}
+
+    def sample_rss(pid: int) -> None:
+        while not sampled.wait(DEPLOY_RSS_EVERY_S):
+            try:
+                rss.append(status_bytes(pid))
+            except OSError:  # the process has exited
+                return
+
+    rss: list = []
+    sampled = threading.Event()
+    try:
+        t0 = time.monotonic()
+        procs["exporter"] = start_container(image, "script", image["entrypoint"],
+                                            [*node_args, *extra_args], node_env, tmp,
+                                            logs["exporter"])
+        sampler = threading.Thread(target=sample_rss, args=(procs["exporter"].pid,),
+                                   name="deploy-rss", daemon=True)
+        sampler.start()
+        (seen["idle_used"],) = wait_for(
+            card_used, DEPLOY_START_S, f"the exporter's series of {sorted(card_nodes or [])} "
+            f"(log: {logs['exporter']})", phase="deploy")
+        seen["ready_s"] = time.monotonic() - t0
+        seen["cards"] = cards()
+        seen["maps_native_lib"] = image["env"]["TPE_NATIVE_LIB"] in Path(
+            f"/proc/{procs['exporter'].pid}/maps").read_text()
+        if agg["command"][:2] != ["python", "-m"]:
+            raise AssertionError(f"deploy: the aggregator's command {agg['command']}")
+        agg_args, seen["aggregator_rewrites"] = container_argv(
+            agg, tmp, agg_port, targets=f"127.0.0.1:{node_port}")
+        agg_env, _ = container_env(agg, image["env"])
+        procs["aggregator"] = start_container(image, "module", agg["command"][2], agg_args,
+                                              agg_env, tmp, logs["aggregator"])
+        seen["pool_idle"] = wait_for(pool, DEPLOY_START_S, "the aggregator's pool rollup",
+                                     phase="deploy")
+        seen["probes_idle"] = {name: http_get(base + path)[0] for name, path in probes.items()}
+        seen["usage"] = [usage()]
+        if load is not None:
+            load.start()
+            loaded = True
+            (seen["filled_used"],) = wait_for(
+                lambda: card_used(lambda v: v >= seen["idle_used"] + fill_bytes),
+                DEPLOY_START_S, "the card's rise by the fill", phase="deploy")
+            seen["fill_s"] = time.monotonic() - seen["usage"][0]["t"]
+            seen["pool_filled"] = wait_for(
+                lambda: (p := pool()) and p[0] >= seen["pool_idle"][0] + fill_bytes and p,
+                DEPLOY_START_S, "the pool's rise by the fill", phase="deploy")
+            seen["probes_load"] = {name: http_get(base + path)[0]
+                                   for name, path in probes.items()}
+            seen["usage"].append(usage())
+            loaded = False
+            load.stop()
+            (seen["released_used"],) = wait_for(
+                lambda: card_used(lambda v: v < seen["idle_used"] + fill_bytes / 2),
+                DEPLOY_START_S, "the card's fall after the release", phase="deploy")
+        seen["usage"].append(usage())
+        seen["rss_by_mapping"] = rss_by_mapping(procs["exporter"].pid)
+        sampled.set()
+        sampler.join(timeout=5)
+        seen["rss"] = rss
+        seen["started"] = {name: proc.started for name, proc in procs.items()}
+        seen["exits"] = {name: stop_container(procs.pop(name), grace_s)
+                         for name in ("aggregator", "exporter")}
+    finally:
+        sampled.set()
+        if loaded:
+            load.stop()
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+        seen["logs"] = {name: path.read_text(errors="replace")[-2000:]
+                        for name, path in logs.items() if path.exists()}
+    return seen
+
+
+def check_deployment(seen: dict) -> dict:
+    """The checks every run of :func:`run_deployment` must pass; returns
+    the exporter's peak RSS and CPU seconds a second beside its limits."""
+    mem_limit = kube_quantity(seen["limits"]["memory"])
+    for name, end in seen["exits"].items():
+        if (end["rc"] != 0 or end["drain_s"] > seen["grace_s"]
+                or end.get("refused_loaded") != [] or end.get("refused_attempts") != []):
+            raise AssertionError(f"deploy: the {name} ended {end}:\n{seen['logs'][name]}")
+    codes = {**seen["probes_idle"], **{f"{k}_load": v
+                                       for k, v in seen.get("probes_load", {}).items()}}
+    if set(codes.values()) != {200}:
+        raise AssertionError(f"deploy: the probes answered {codes}")
+    if not seen["maps_native_lib"]:
+        raise AssertionError("deploy: the exporter has not mapped TPE_NATIVE_LIB")
+    usage = seen["usage"]
+    peak = max(max(r.values()) for r in seen["rss"])
+    if peak >= mem_limit:
+        raise AssertionError(f"deploy: the exporter's peak RSS {peak:.0f} B reaches the "
+                             f"manifest's limit {mem_limit:.0f} B")
+    return {"peak_rss_bytes": peak, "rss_samples": len(seen["rss"]),
+            "memory_limit_bytes": mem_limit,
+            "cpu_s_per_s": (usage[-1]["cpu_s"] - usage[0]["cpu_s"])
+            / (usage[-1]["t"] - usage[0]["t"]),
+            "cpu_limit": kube_quantity(seen["limits"]["cpu"])}
+
+
+def phase_deploy(dev, tm, hwcheck) -> dict:
+    """Phase 17: the GPU image emulated on the card's host, and its
+    DaemonSet's and aggregator's containers run from it as their manifests
+    write them, under the full-size load held by this process. Returns the
+    launches by kernel of that load."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    reset_counts(tm)
+    stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
+                                 batch=BATCH, iters=ITERS, device=dev)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        image = build_image(build_context(tmp), tmp)
+        before = tree_state(image["site"])
+        emit("deploy_image", build_s=image["build_s"], wheel=image["wheel"].name,
+             wheel_bytes=image["wheel"].stat().st_size,
+             files=sum(p.is_file() for p in image["site"].rglob("*")),
+             env=image["env"], entrypoint=image["entrypoint"])
+        torch.empty(0, device=dev)  # a context on the card holds its node open
+        held = held_card_nodes()
+        if not held:
+            raise AssertionError("deploy: this process holds no /dev/nvidia<N> node")
+        seen = run_deployment(image, tmp, load=stim, fill_bytes=FILL_BYTES, card_nodes=held)
+        changed = sorted(k for k, v in tree_state(image["site"]).items() if before.get(k) != v)
+        changed += sorted(before.keys() - tree_state(image["site"]).keys())
+    cost = check_deployment(seen)
+    node, agg = seen["exits"]["exporter"], seen["exits"]["aggregator"]
+    emit("deploy_exporter", package=seen["started"]["exporter"]["package"],
+         native_lib=seen["started"]["exporter"]["native_lib"], rewrites=seen["rewrites"],
+         cards=seen["cards"], ready_s=seen["ready_s"],
+         probes={"idle": seen["probes_idle"], "load": seen["probes_load"]},
+         used_bytes={"idle": seen["idle_used"], "filled": seen["filled_used"],
+                     "released": seen["released_used"]},
+         rise_bytes=seen["filled_used"] - seen["idle_used"], fill_s=seen["fill_s"],
+         vm_hwm_kept="VmHWM" in seen["rss"][-1], **cost, rss_by_mapping=seen["rss_by_mapping"],
+         rc=node["rc"], drain_s=node["drain_s"],
+         grace_s=seen["grace_s"], refused_attempts=node["refused_attempts"],
+         refused_loaded=node["refused_loaded"])
+    emit("deploy_aggregator", command=seen["aggregator_command"],
+         rewrites=seen["aggregator_rewrites"],
+         pool={"idle": seen["pool_idle"], "filled": seen["pool_filled"]},
+         rc=agg["rc"], drain_s=agg["drain_s"], refused_attempts=agg["refused_attempts"],
+         refused_loaded=agg["refused_loaded"])
+    if seen["filled_used"] - seen["idle_used"] < FILL_BYTES:
+        raise AssertionError(f"deploy: the card rose {seen['filled_used'] - seen['idle_used']} B")
+    if changed:
+        raise AssertionError(f"deploy: the read-only wheel changed: {changed[:20]}")
+    launches = tm.tanh_matmul.launches
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    emit("deploy", seconds=time.monotonic() - t_phase, burn_steps=stim.steps,
+         launches_by_kernel=by_kernel, card=nvidia_smi("name,power.limit"))
+    if launches <= 0:
+        raise AssertionError("no tanh_matmul launch during the deploy phase")
+    check_all_wgmma(tm, "deploy", launches)
+    return by_kernel
+
+
 def main() -> int:
     from tpu_pod_exporter_torch import hwcheck, nativelib
     from tpu_pod_exporter_torch.kernels import online_softmax as osm
@@ -2547,15 +3069,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_drills(dev, uuid, hwcheck_probe)
     lint = phase_lint(uuid)
+    deploy = phase_deploy(dev, tm, hwcheck)
 
     # Launches on the main paths: the closed loop, the training run, the
     # collective programs, the NVML closed loop, the node state phase, the
-    # fleet phase and the lint phase's witnessed closed loop.
+    # fleet phase, the lint phase's witnessed closed loop and the deploy
+    # phase's load (the deployed exporter itself launches none).
     names = (*SOURCES, "sgd", "online_softmax")
     by_path = {kernel: {"closed_loop": closed_loop.get(kernel, 0),
                         "train": train.get(kernel, 0), "parallel": parallel[kernel],
                         "nvml": nvml.get(kernel, 0), "node_state": node_state.get(kernel, 0),
-                        "fleet": fleet.get(kernel, 0), "lint_witness": lint.get(kernel, 0)}
+                        "fleet": fleet.get(kernel, 0), "lint_witness": lint.get(kernel, 0),
+                        "deploy": deploy.get(kernel, 0)}
                for kernel in names}
     kernels = [{
         "name": tm.ENTRIES[kernel],
