@@ -6,16 +6,25 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device    — the card's name, and nvidia-smi's name and power limit;
-2. build     — one nvcc call builds both tanh_matmul kernels (wgmma and
-               wmma) from this checkout, and g++ the native library
-               (``libtpumon``) from the port's ``native/tpumon.cc``;
-3. kernel    — each kernel against tanh_matmul_plain on the card at the
-               shapes that pick it (ragged M, N, K edges; K or N not a
-               multiple of 8; a misaligned h), checking which kernel each
-               launched; then, at the main-path shape and in turns, the
-               times of the wgmma kernel, the wmma kernel (through its C
-               entry), the plain version and one cuBLAS call
-               (``torch.tanh(h @ w)``, a yardstick the package never calls);
+2. build     — one nvcc call builds every kernel (the tanh_matmul kernels,
+               wgmma with its aligned and strided entries and wmma, the
+               staging copy, the SGD update, the running softmax) from this
+               checkout, and g++ the native library (``libtpumon``) from
+               the port's ``native/tpumon.cc``;
+3. kernel    — each route against tanh_matmul_plain on the card at the
+               shapes that pick it (ragged M, N, K edges on wgmma; K or N
+               not a multiple of 8, a misaligned h on the staged route),
+               checking which route each launched; then, at the main-path
+               shape and in turns, the times of the wgmma route, the wmma
+               kernel (through ``launch``), the plain version and one
+               cuBLAS call (``torch.tanh(h @ w)``, a yardstick the package
+               never calls); then at two shapes the staged route takes
+               (4096 x 8190 x 8190, both operands staged; the main shape
+               with h one element off alignment, h staged) the staged
+               route, the wmma kernel, cuBLAS and the plain version in
+               turns, and the staging copy of each staged operand against
+               stage_rows_plain (bit for bit) and its byte bound, in turns
+               with the plain copy and ``F.pad``;
 4. workload  — a burn at width 8192, depth 8, batch 4096 (10 forwards per
                step), its TFLOP/s, the chain checked against the plain
                chain, and every launch on the wgmma kernel;
@@ -68,7 +77,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                fill, the reference's {pid, pod} series is there, and every
                launch is on the wgmma kernel; ``--backend auto`` picks NVML;
                then NvmlBackend.sample() times over 200 calls idle and under
-               the burn, and NVML's used beside the allocator's count.
+               the burn, and NVML's used beside the allocator's count; then
+               each NVML call of one sample() timed, the binding's library
+               loaded through ctypes.CDLL and ctypes.PyDLL in turns, 200
+               samples each, idle and under the burn, alone and beside one
+               thread that runs Python: each symbol's and the whole
+               sample's median and p99.
 13. node      — the node's native fast path and durable state under the
     state       16 GiB fill and the full-size burn: nativelib.load() gives the
                libtpumon just built from the port's native/tpumon.cc; the live
@@ -81,7 +95,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the history holds the filled level from before the kill, the
                receiver's ledger has no gap and no re-sent batch and agrees
                with that history, and three injected NVML errors are counted
-               and recovered from.
+               and recovered from. Prints the live exporter's device_read
+               p99 beside the 10 ms limit.
 14. fleet     — the fleet plane over the card's node under the 16 GiB fill and
                the full-size burn: the port's exporter on the card (NVML,
                process scan, checkpoint attribution) and fifteen simulated
@@ -100,7 +115,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                ``status --tree`` and ``status`` on the node exit 0 and show
                121 cards, the firing alert and the card; every tier exits 0
                on SIGTERM. Prints the round times, the stream's lag, the
-               alert's latency and each process's CPU and RSS.
+               alert's latency, each process's CPU and RSS, and the node
+               exporter's poll phases, device_read p99 beside the 10 ms
+               limit and scrape p99.
 15. drills    — the NVML probe (``probe --runtime nvml``) on the card: one
                device, nvidia-smi's UUID, the minor of the node this
                process holds, used memory up by the 16 GiB fill and down
@@ -117,7 +134,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                invariant), the fuzzer and the store demo, the shard demo
                and the pressure negative control; then alone the pressure
                demo, the dashboard demo (at the CI workflow's scale) and
-               its negative control. Prints each drill's seconds and
+               its negative control. Beside the second group, the three
+               drills that grow RSS most (mem_pressure, store_continuity,
+               partition_asymmetric) each alone in a process whose wrapper
+               prints RSS beside glibc's mallinfo2() and pymalloc's arenas
+               at its start and exit. Prints each drill's seconds and
                verdict.
 16. lint      — the port's exporter-lint on its own tree: ``python -m
                tpu_pod_exporter_torch.analysis --format json`` finds
@@ -153,7 +174,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                stays under the manifest's memory limit (its CPU seconds a
                second printed beside the CPU limit), both drain on SIGTERM
                with exit 0 inside terminationGracePeriodSeconds, and the
-               unpacked wheel is unchanged.
+               unpacked wheel is unchanged. Prints the exporter's poll
+               phases, device_read p99 beside the 10 ms limit and scrape
+               p99.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -163,6 +186,8 @@ and prints no result.
 
 from __future__ import annotations
 
+import faulthandler
+import functools
 import json
 import math
 import os
@@ -175,6 +200,9 @@ from pathlib import Path
 
 import torch
 
+# The whole script stays under 1200 s; past this many seconds it dumps
+# every thread's stack and exits.
+WATCHDOG_S = 1140
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -191,10 +219,20 @@ KERNEL_CASES = (
     (1, 64, 8, 0, "wgmma"),          # one row; N and K inside one tile
     (300, 136, 264, 0, "wgmma"),     # ragged M, N and K; a W box wholly past N
     (*MAIN_SHAPE, 0, "wgmma"),
-    (257, 1000, 4095, 0, "wmma"),    # N not a multiple of 8
-    (300, 136, 264, 1, "wmma"),      # h off 16-byte alignment
+    (257, 1000, 4095, 0, "staged"),  # N not a multiple of 8
+    (300, 136, 264, 1, "staged"),    # h off 16-byte alignment
 )
-SOURCES = {"wgmma": "tanh_matmul_sm90.cu", "wmma": "tanh_matmul.cu"}
+# The staged route timed beside the wmma kernel, cuBLAS and the plain
+# version: ((m, k, n), elements h is shifted off 16-byte alignment).
+STAGED_SHAPES = (
+    ((BATCH, WIDTH - 2, WIDTH - 2), 0),  # K and N not multiples of 8: both staged
+    (MAIN_SHAPE, 1),                     # h one element off alignment: h staged
+)
+# tanh_matmul's routes and the file of the kernel each launches; the
+# staging copy the staged route launches first.
+SOURCES = {"wgmma": "tanh_matmul_sm90.cu", "staged": "tanh_matmul_sm90.cu",
+           "wmma": "tanh_matmul.cu"}
+STAGE_SOURCE = "stage_rows.cu"
 # One layer: the kernel and the plain version both sum bf16 products in f32,
 # in different orders, and take tanh in f32 (tanhf against torch.tanh); the
 # two f32 results may then round to neighbouring bf16 values. One bf16 step
@@ -252,6 +290,10 @@ REPO = Path(__file__).resolve().parent
 # The NVML phase: NvmlBackend.sample() timed over this many calls, and the
 # pod a synthetic kubelet checkpoint gives the card to.
 NVML_SAMPLES = 200
+# The loaders whose NVML calls phase 12 times in turns (the binding's own,
+# CDLL, first); PERF.md's device_read limit.
+NVML_LOADERS = ("CDLL", "PyDLL")
+DEVICE_READ_LIMIT_MS = 10.0
 SMOKE_POD, SMOKE_POD_UID = "burn-0", "8a1d3f50-0c4e-4b6e-9f21-5d7c2b9e4a10"
 # The node state phase: the live exporter's poll phases in segments of this
 # length, with the native library on and off in turns; then a subprocess
@@ -294,8 +336,9 @@ FLEET_ALERT_RULE = (
 FLEET_STREAM = ("tpu_slice_hbm_used_bytes", 30.0)  # metric, window (s)
 # The drills phase: the port's drill CLIs at the Makefile's scale, each a
 # subprocess with its state under a temporary directory: (name, module,
-# arguments, whether it must exit 0, text its output must hold). The
-# negative controls must fail, and fail on the invariant they disable.
+# arguments, whether it must exit 0, text its output must hold[, run under
+# DRILL_MEMORY_BOOTSTRAP]). The negative controls must fail, and fail on
+# the invariant they disable.
 # Groups run one after another; the lanes of a group side by side, each
 # lane's drills in turn. The drills whose checks are timings (the
 # scenarios' staleness and continuity windows, the scrape storm's polite
@@ -323,7 +366,11 @@ DRILL_GROUPS = (
                                        "--chips", "2", "--churn", "32", "--round-budget-s",
                                        "15", "--gpu-slices", "2"), True, "shard-demo OK"),
       ("pressure_negative_control", "pressure", ("--negative-control",), True,
-       "negative control OK"))),
+       "negative control OK")),
+     tuple((f"memory_{name}", "loadgen.scenario",
+            ("--scenarios", name, "--targets", "120", "--shards", "4"), True,
+            "scenario-demo OK", True)
+           for name in ("mem_pressure", "store_continuity", "partition_asymmetric"))),
     ((("pressure_demo", "pressure", ("--demo",), True, "storm drill OK"),
       ("dashboard_demo", "loadgen.fleet", ("--mode", "dashboard", "--targets", "48",
                                            "--shards", "2", "--chips", "2", "--subs", "600",
@@ -360,7 +407,7 @@ LINT_CARD_LOCKS = (("tpu_pod_exporter_torch/kernels/tanh_matmul.py", "_lock = th
 # imports any other module of the port, runs hwcheck's closed loop once per
 # run of the spec (argv[1], JSON), dumps both witnesses into the spec's
 # directory and prints one JSON line with its pid, the reports and its
-# tanh_matmul launches by kernel.
+# tanh_matmul launches by route (and the staging copies').
 LINT_CHILD = """
 import json, os, sys
 from tpu_pod_exporter_torch.analysis import witness
@@ -381,7 +428,64 @@ for run in spec["runs"]:
 locks.dump(os.path.join(spec["out"], "lock-witness.json"))
 loop.dump(os.path.join(spec["out"], "loop-witness.json"))
 print(json.dumps({"pid": os.getpid(), "reports": reports, "launches": tm.tanh_matmul.launches,
-                  "launches_by_kernel": tm.tanh_matmul.launches_by_kernel}))
+                  "launches_by_kernel": {**tm.tanh_matmul.launches_by_kernel,
+                                         "stage_rows": tm.stage_rows.launches}}))
+"""
+# The memory drills (ROADMAP.md fault B), each alone in a process: the
+# ``main()`` of ``tpu_pod_exporter_torch.<argv[1]>`` on ``argv[2:]``, with
+# one JSON line after the imports and one at exit (after a gc pass) of the
+# process's RSS beside glibc's mallinfo2() over all arenas (bytes in use,
+# free but held by the allocator, mmapped, the arenas' size) and
+# pymalloc's arenas and the bytes in their allocated blocks
+# (``sys._debugmallocstats``, read off fd 2).
+DRILL_MEMORY_BOOTSTRAP = """
+import atexit, ctypes, gc, importlib, json, os, re, sys, tempfile
+
+
+class Mallinfo2(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_size_t) for f in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks", "fsmblks",
+        "uordblks", "fordblks", "keepcost")]
+
+
+libc = ctypes.CDLL(None)
+libc.mallinfo2.restype = Mallinfo2
+
+
+def pymalloc():
+    with tempfile.TemporaryFile() as f:
+        sys.stderr.flush()
+        saved = os.dup(2)
+        os.dup2(f.fileno(), 2)
+        try:
+            sys._debugmallocstats()
+        finally:
+            os.dup2(saved, 2)
+            os.close(saved)
+        f.seek(0)
+        text = f.read().decode(errors="replace")
+    number = lambda pattern: int(re.search(pattern, text).group(1).replace(",", ""))
+    return {"pymalloc_arena_bytes": number(r"arenas \\* \\d+ bytes/arena\\s*=\\s*([\\d,]+)"),
+            "pymalloc_block_bytes": number(r"# bytes in allocated blocks\\s*=\\s*([\\d,]+)")}
+
+
+def snapshot(when):
+    gc.collect()  # unreachable cycles are not the drill's live data
+    info = libc.mallinfo2()
+    with open("/proc/self/status") as status:
+        rss = next(int(ln.split()[1]) * 1024 for ln in status if ln.startswith("VmRSS:"))
+    print(json.dumps({"memory": when, "glibc": os.confstr("CS_GNU_LIBC_VERSION"),
+                      "rss_bytes": rss, "malloc_in_use_bytes": info.uordblks,
+                      "malloc_free_held_bytes": info.fordblks,
+                      "malloc_mmapped_bytes": info.hblkhd, "malloc_arena_bytes": info.arena,
+                      **pymalloc()}), flush=True)
+
+
+module = importlib.import_module("tpu_pod_exporter_torch." + sys.argv[1])
+sys.argv = [module.__name__, *sys.argv[2:]]
+snapshot("start")
+atexit.register(snapshot, "exit")
+sys.exit(module.main())
 """
 # The deploy phase: the GPU image, DaemonSet and fleet manifests, and what
 # the emulation refuses to import (the image installs the wheel without the
@@ -449,6 +553,14 @@ def nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def card_line() -> str:
+    """nvidia-smi's name and power limit, read once at the start, before
+    any load: phases print it beside their numbers without running
+    nvidia-smi while this process holds the card busy."""
+    return nvidia_smi("name,power.limit")
+
+
 def time_in_turns(fns: dict, reps: int = 20, calls: int = 5) -> dict:
     """Median ms a call of each function, timed in turns: every round times
     each function once, as CUDA events around ``calls`` back-to-back calls
@@ -474,10 +586,16 @@ def reset_counts(tm, sgd=None, osm=None) -> None:
     tm.tanh_matmul.launches = 0
     for kernel in tm.tanh_matmul.launches_by_kernel:
         tm.tanh_matmul.launches_by_kernel[kernel] = 0
+    tm.stage_rows.launches = 0
     if sgd is not None:
         sgd.sgd_update_.launches = 0
     if osm is not None:
         osm.online_softmax_update_.launches = 0
+
+
+def launch_counts(tm) -> dict:
+    """tanh_matmul's launches by route, and the staging copies'."""
+    return {**tm.tanh_matmul.launches_by_kernel, "stage_rows": tm.stage_rows.launches}
 
 
 def layer_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
@@ -500,8 +618,11 @@ def operands(dev, gen, m, k, n, offset=0):
 
 
 def phase_kernel(dev, tm) -> dict:
-    """Each kernel against the plain version; then the times at the main
-    shape. Returns {kernel: its numbers for the kernels line}."""
+    """Each route against the plain version; then the times at the main
+    shape and at the staged shapes, and the staging copy's. Returns {route,
+    or "stage_rows": its numbers for the kernels line}."""
+    import torch.nn.functional as F
+
     gen = torch.Generator(device=dev).manual_seed(0)
     errs: dict = {}
     for m, k, n, offset, kernel in KERNEL_CASES:
@@ -524,13 +645,16 @@ def phase_kernel(dev, tm) -> dict:
             errs[kernel] = err
         del h, w, y, ref
 
+    def max_err(y, ref, what: str) -> float:
+        err = (y.float() - ref.float()).abs().max().item()
+        if not (torch.isfinite(y.float()).all() and err <= LAYER_ATOL):
+            raise AssertionError(f"{what}: max_abs_err {err} > {LAYER_ATOL}")
+        return err
+
     m, k, n = MAIN_SHAPE
     h, w = operands(dev, gen, m, k, n)
-    wmma_err = (tm.launch("wmma", h, w).float()
-                - tm.tanh_matmul_plain(h, w).float()).abs().max().item()
-    if wmma_err > LAYER_ATOL:
-        raise AssertionError(f"wmma {m}x{k}x{n}: max_abs_err {wmma_err} > {LAYER_ATOL}")
-    errs["wmma"] = wmma_err
+    errs["wmma"] = max_err(tm.launch("wmma", h, w), tm.tanh_matmul_plain(h, w),
+                           f"wmma {m}x{k}x{n}")
     ms = time_in_turns({
         "wgmma": lambda: tm.tanh_matmul(h, w),
         "library": lambda: torch.tanh(h @ w),
@@ -543,20 +667,79 @@ def phase_kernel(dev, tm) -> dict:
          tflops={name: flops / t / 1e9 for name, t in ms.items()},
          share_of_bound={name: bound / t for name, t in ms.items()})
     del h, w
-    return {kernel: {
-        "max_abs_err": errs[kernel],
-        "ms": ms[kernel],
-        "plain_ms": ms["plain"],
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": ms["library"],
-    } for kernel in SOURCES}
+    records = {kernel: {
+        "max_abs_err": errs[kernel], "ms": ms[kernel], "plain_ms": ms["plain"],
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": ms["library"],
+    } for kernel in ("wgmma", "wmma")}
+
+    # The staged route at its two shapes, with the wmma kernel it replaces,
+    # cuBLAS and the plain version in turns; the first shape's numbers go
+    # on the kernels line. Then the staging copy of each staged operand.
+    for (m, k, n), offset in STAGED_SHAPES:
+        h, w = operands(dev, gen, m, k, n, offset)
+        plan = tm.staging(n, k, h.data_ptr(), w.data_ptr())
+        ref = tm.tanh_matmul_plain(h, w)
+        before = launch_counts(tm)
+        err = max_err(tm.tanh_matmul(h, w), ref, f"staged {m}x{k}x{n} offset {offset}")
+        moved = {name: count - before[name] for name, count in launch_counts(tm).items()}
+        if moved != {**{name: 0 for name in moved}, "staged": 1, "stage_rows": len(plan)}:
+            raise AssertionError(f"staged {m}x{k}x{n}: launches {moved}, staging {plan}")
+        wmma_err = max_err(tm.launch("wmma", h, w), ref, f"wmma {m}x{k}x{n}")
+        del ref
+        ms = time_in_turns({
+            "staged": lambda: tm.tanh_matmul(h, w),
+            "wmma": lambda: tm.launch("wmma", h, w),
+            "library": lambda: torch.tanh(h @ w),
+            "plain": lambda: tm.tanh_matmul_plain(h, w),
+        })
+        bound, bound_by = layer_bound_ms(m, k, n)
+        flops = 2.0 * m * n * k
+        emit("kernel_time", shape=[m, k, n], h_offset=offset, staged=plan, ms=ms,
+             max_abs_err={"staged": err, "wmma": wmma_err}, bound_ms=bound,
+             bound_by=bound_by, tflops={name: flops / t / 1e9 for name, t in ms.items()},
+             share_of_bound={name: bound / t for name, t in ms.items()})
+        if "staged" not in records:
+            records["staged"] = {"shape": [m, k, n], "max_abs_err": err, "ms": ms["staged"],
+                                 "plain_ms": ms["plain"], "bound_ms": bound,
+                                 "bound_by": bound_by, "library_ms": ms["library"]}
+        for name, x in (("h", h), ("w", w)):
+            if name not in plan:
+                continue
+            ld = plan[name]
+            rows, cols = x.shape
+            staged = tm.stage_rows(x, ld)
+            equal = torch.equal(staged.view(torch.int16),
+                                tm.stage_rows_plain(x, ld).view(torch.int16))
+            if not equal:
+                raise AssertionError(f"stage_rows {rows}x{cols} -> ld {ld}: differs from "
+                                     "stage_rows_plain")
+            del staged
+            copy_ms = time_in_turns({
+                "kernel": lambda: tm.stage_rows(x, ld),
+                "plain": lambda: tm.stage_rows_plain(x, ld),
+                "library": lambda: F.pad(x, (0, ld - cols)),
+            })
+            moved_bytes = 2.0 * rows * (cols + ld)
+            copy_bound = moved_bytes / PEAK_HBM_BYTES_PER_S * 1e3
+            emit("stage_rows_time", operand=name, shape=[rows, cols], ld=ld,
+                 offset_bytes=x.data_ptr() % 16, bit_equal=equal, ms=copy_ms,
+                 bytes=moved_bytes, bound_ms=copy_bound, bound_by="bytes",
+                 share_of_bound={k_: copy_bound / t for k_, t in copy_ms.items()})
+            if "stage_rows" not in records:
+                records["stage_rows"] = {"shape": [rows, cols, ld], "max_abs_err": 0.0,
+                                         "ms": copy_ms["kernel"], "plain_ms": copy_ms["plain"],
+                                         "bound_ms": copy_bound, "bound_by": "bytes",
+                                         "library_ms": copy_ms["library"]}
+        del h, w
+    return records
 
 
 def check_all_wgmma(tm, phase: str, launches: int) -> None:
-    by_kernel = tm.tanh_matmul.launches_by_kernel
-    if by_kernel["wgmma"] != launches or by_kernel["wmma"] != 0:
-        raise AssertionError(f"{phase}: {launches} launches, by kernel {by_kernel}")
+    """Every launch of a main path on the wgmma route: none staged, none on
+    wmma, no staging copy."""
+    counts = launch_counts(tm)
+    if counts != {**{name: 0 for name in counts}, "wgmma": launches}:
+        raise AssertionError(f"{phase}: {launches} launches, by kernel {counts}")
 
 
 def phase_workload(dev, tm, wl) -> None:
@@ -591,7 +774,7 @@ def phase_workload(dev, tm, wl) -> None:
     flops = 2 * BATCH * WIDTH * WIDTH * DEPTH * ITERS * steps
     emit("workload", width=WIDTH, depth=DEPTH, batch=BATCH, iters=ITERS,
          steps=steps, seconds=dt, tflops=flops / dt / 1e12,
-         launches=launches, launches_by_kernel=tm.tanh_matmul.launches_by_kernel,
+         launches=launches, launches_by_kernel=launch_counts(tm),
          chain_max_abs_err=chain_err, chain_atol=CHAIN_ATOL,
          clocks_sm_power_draw=clocks_power)
 
@@ -618,7 +801,7 @@ def phase_closed_loop(dev, tm, hwcheck, uuid: str) -> dict:
     report = hwcheck.run_check(backend="torch", idle_s=2.0, load_s=8.0,
                                stimulus=stim)
     launches = tm.tanh_matmul.launches
-    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    by_kernel = launch_counts(tm)
     emit("closed_loop", report=report, launches=launches,
          launches_by_kernel=by_kernel, burn_steps=stim.steps)
     check_torch_loop(report, "closed loop")
@@ -759,7 +942,7 @@ def phase_train(dev, tm, sgd, sharded) -> dict:
         steps += 1
     dt = time.monotonic() - t0
     clocks_power = nvidia_smi("clocks.sm,power.draw")
-    by_kernel = {**tm.tanh_matmul.launches_by_kernel, "sgd": sgd.sgd_update_.launches}
+    by_kernel = {**launch_counts(tm), "sgd": sgd.sgd_update_.launches}
     flops_per_step = 2 * BATCH * WIDTH * WIDTH * (3 * DEPTH - 1)
     emit("train", width=WIDTH, depth=DEPTH, batch=BATCH, lr=LR, steps=steps, seconds=dt,
          step_ms=dt / steps * 1e3, tflops=flops_per_step * steps / dt / 1e12,
@@ -928,7 +1111,7 @@ def phase_parallel(dev, tm, sgd, osm, par) -> dict:
             and torch.allclose(out, ref, rtol=PAR_TOL["ring"], atol=PAR_TOL["ring"])):
         raise AssertionError(f"ring with q, k, v drawn apart: max_abs_err {err}")
     del q, k, v, out, ref
-    by_kernel = {**tm.tanh_matmul.launches_by_kernel, "sgd": sgd.sgd_update_.launches,
+    by_kernel = {**launch_counts(tm), "sgd": sgd.sgd_update_.launches,
                  "online_softmax": osm.online_softmax_update_.launches}
     if by_kernel["online_softmax"] != ring_steps:
         raise AssertionError(f"parallel: {by_kernel['online_softmax']} online_softmax "
@@ -1005,16 +1188,85 @@ def held_card_nodes() -> set:
     return nodes
 
 
+class _Timed:
+    """A callable's wall ms, one entry a call."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+
+def quantiles_ms(times: list) -> dict:
+    """Median and nearest-rank p99 of ``times`` (ms), and their count."""
+    ordered = sorted(times)
+    return {"median": statistics.median(ordered),
+            "p99": ordered[math.ceil(0.99 * len(ordered)) - 1], "calls": len(ordered)}
+
+
 def sample_ms(backend, calls: int = NVML_SAMPLES) -> dict:
     """Median and p99 ms of ``backend.sample()`` over ``calls`` calls."""
-    times = []
+    sample = _Timed(backend.sample)
     for _ in range(calls):
-        t0 = time.perf_counter()
-        backend.sample()
-        times.append((time.perf_counter() - t0) * 1e3)
-    times.sort()
-    return {"median": statistics.median(times), "p99": times[math.ceil(0.99 * calls) - 1],
-            "calls": calls}
+        sample()
+    return quantiles_ms(sample.ms)
+
+
+def nvml_call_times(beside_python: bool, calls: int = NVML_SAMPLES) -> dict:
+    """Each NVML call of ``NvmlBackend.sample()``, timed through the port's
+    ctypes binding with its library loaded by each of NVML_LOADERS: the
+    loaders in turns, one sample each a round, ``calls`` rounds; with
+    ``beside_python``, beside one thread that runs Python throughout.
+    Returns {loader: {symbol or "sample": median and p99 ms}}; a symbol's
+    time is wall time from the call to its return to Python, the wait for
+    the interpreter lock included."""
+    import ctypes
+    import threading
+
+    from tpu_pod_exporter_torch.backend import nvml_ctypes
+    from tpu_pod_exporter_torch.backend.nvml import NvmlBackend
+
+    timers: dict = {}
+    backends = {}
+    for loader in NVML_LOADERS:
+        driver = nvml_ctypes.CtypesNvmlDriver(
+            lib=getattr(ctypes, loader)(nvml_ctypes.LIBRARY))
+        driver._fns = {name: _Timed(fn) for name, fn in driver._fns.items()}
+        driver._procs = _Timed(driver._procs)
+        backend = NvmlBackend(driver=driver)
+        backend.sample()  # nvmlInit outside the timed rounds
+        timers[loader] = {**driver._fns, driver.process_symbol: driver._procs,
+                          "sample": _Timed(backend.sample)}
+        for timer in timers[loader].values():
+            timer.ms.clear()
+        backends[loader] = backend
+    stop = threading.Event()
+
+    def spin() -> None:
+        x = 0
+        while not stop.is_set():
+            x += 1
+
+    spinner = threading.Thread(target=spin, name="busy-python", daemon=True)
+    if beside_python:
+        spinner.start()
+    try:
+        for _ in range(calls):
+            for by_name in timers.values():
+                by_name["sample"]()
+    finally:
+        stop.set()
+        if beside_python:
+            spinner.join(timeout=10)
+        for backend in backends.values():
+            backend.close()
+    return {loader: {name: quantiles_ms(t.ms) for name, t in by_name.items() if t.ms}
+            for loader, by_name in timers.items()}
 
 
 def kubelet_fixture(tmp: str, uuid: str) -> dict:
@@ -1102,7 +1354,7 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
             backend="nvml", idle_s=2.0, load_s=8.0, stimulus=stim,
             exporter_args={"process_metrics": True, "legacy_metrics": True,
                            **kubelet_fixture(tmp, torch_uuid)})
-    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    by_kernel = launch_counts(tm)
     emit("nvml_closed_loop", report=report, pid=os.getpid(), launches_by_kernel=by_kernel,
          burn_steps=stim.steps)
     check_nvml_loop(report, os.getpid(), "nvml closed loop")
@@ -1119,6 +1371,7 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
     backend = NvmlBackend()
     idle_sample = backend.sample().chips
     idle_ms = sample_ms(backend)
+    calls = {"idle": nvml_call_times(False), "idle_beside_python": nvml_call_times(True)}
     stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
                                  batch=BATCH, iters=ITERS, device=dev)
     stim.start()
@@ -1127,9 +1380,13 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
         burn_ms = sample_ms(backend)
         (chip,) = [c for c in backend.sample().chips if c.info.device_ids[0] == torch_uuid]
         allocated, reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        calls["burn"] = nvml_call_times(False)
+        calls["burn_beside_python"] = nvml_call_times(True)
     finally:
         stim.stop()
         backend.close()
+    emit("nvml_calls", samples=NVML_SAMPLES, loaders=list(NVML_LOADERS),
+         runs=calls, card=card_line())
     (idle_chip,) = [c for c in idle_sample if c.info.device_ids[0] == torch_uuid]
     emit("nvml_numbers", sample_ms_idle=idle_ms, sample_ms_burn=burn_ms,
          poll_phase_last_ms={phase: report["phases"][phase]["poll_phase_last_ms"]
@@ -1213,6 +1470,40 @@ def bucket_quantile(q: float, buckets: dict) -> float | None:
     return prev_le
 
 
+def quantile_ms(q: float, buckets: dict) -> float | None:
+    value = bucket_quantile(q, buckets)
+    return None if value is None else 1e3 * value
+
+
+def exporter_latency(body: bytes) -> dict:
+    """An exporter's poll phases and served scrapes from its own histograms
+    in ``body``: p50/p99 ms of each phase and of a scrape, the poll and
+    scrape counts, and device_read's cumulative polls by bucket bound (ms)."""
+    phases = phase_buckets(body)
+    out: dict = {phase: {f"p{round(q * 100)}_ms": quantile_ms(q, phases[phase])
+                         for q in (0.5, 0.99)}
+                 for phase in POLL_PHASES if phase in phases}
+    out["polls"] = phases.get("total", {}).get(math.inf)
+    scrape = {float(s.labels["le"]): s.value
+              for s in samples_of(body, "tpu_exporter_scrape_duration_seconds_bucket")}
+    out["scrape"] = {"p50_ms": quantile_ms(0.5, scrape), "p99_ms": quantile_ms(0.99, scrape),
+                     "scrapes": scrape.get(math.inf)}
+    out["device_read_buckets_ms"] = {str(1e3 * le): n
+                                     for le, n in sorted(phases.get("device_read", {}).items())}
+    return out
+
+
+def emit_device_read(where: str, p99_ms: dict, **fields) -> None:
+    """One line of phase ``where``'s device_read p99 (by exporter) beside
+    PERF.md's limit. Printed, not gated: a phase over the limit names its
+    cause in ROADMAP.md."""
+    emit("device_read", where=where, p99_ms=p99_ms,
+         limit_ms=DEVICE_READ_LIMIT_MS,
+         within_limit={k: v is not None and v <= DEVICE_READ_LIMIT_MS
+                       for k, v in p99_ms.items()},
+         card=card_line(), **fields)
+
+
 def host_ms_in_turns(fns: dict, reps: int = 20) -> dict:
     """Median host ms a call of each function, called in turns."""
     times: dict = {name: [] for name in fns}
@@ -1271,20 +1562,27 @@ def poll_phase_segments(app, base: str, nativelib) -> dict:
     None makes every caller take its Python path, as on a node without the
     library). Returns per mode the poll-phase p50/p99 from the exporter's
     own histogram (bucket counts added over the mode's segments; the first
-    poll is before every segment), polls, full walks by path."""
+    poll is before every segment), polls, full walks by path, and the
+    device read's own time on the supervisor's worker (the device_read
+    phase less that is the handoff to and from the worker)."""
     scanner = app.process_scanner
     native_walk = scanner._native_full_scan = _Counted(scanner._native_full_scan)
     python_walk = scanner._python_full_scan = _Counted(scanner._python_full_scan)
+    device = app.supervisors["device"]
+    in_worker = device._fn = _Timed(device._fn)
     load = nativelib.load
     sums = {mode: {} for mode in ("native", "python")}
     walks = {mode: {"native": 0, "python": 0, "full_scans": 0} for mode in sums}
+    worker_ms: dict = {mode: [] for mode in sums}
     try:
         for mode in NODE_STATE_MODES:
             nativelib.load = load if mode == "native" else (lambda: None)
             time.sleep(2 * NODE_STATE_INTERVAL_S)  # the poll in flight ends
             before = phase_buckets(http_get(base + "/metrics")[1])
             counts = (native_walk.results, python_walk.calls, scanner.full_scans)
+            first = len(in_worker.ms)
             time.sleep(NODE_STATE_SEGMENT_S)
+            worker_ms[mode] += in_worker.ms[first:]
             after = phase_buckets(http_get(base + "/metrics")[1])
             walks[mode]["native"] += native_walk.results - counts[0]
             walks[mode]["python"] += python_walk.calls - counts[1]
@@ -1301,6 +1599,9 @@ def poll_phase_segments(app, base: str, nativelib) -> dict:
         for phase, buckets in by_phase.items():
             out[mode][phase] = {f"p{round(q * 100)}_ms": 1e3 * bucket_quantile(q, buckets)
                                 for q in (0.5, 0.99)}
+        out[mode]["device_read_buckets_ms"] = {
+            str(1e3 * le): n for le, n in sorted(by_phase["device_read"].items())}
+        out[mode]["device_sample_in_worker_ms"] = quantiles_ms(worker_ms[mode])
     if walks["native"]["python"] or not walks["native"]["native"]:
         raise AssertionError(f"node state: the native segments walked /proc {walks['native']}")
     if walks["python"]["native"] or not walks["python"]["python"]:
@@ -1358,6 +1659,7 @@ def phase_node_state(dev, tm, hwcheck, uuid: str, libtpumon: Path) -> dict:
                                  batch=BATCH, iters=ITERS, device=dev)
     procs: list = []
     recv = ledger_receiver()
+    recv.start()  # before the try: its stop() waits for a started server
     tmp = tempfile.TemporaryDirectory()
     stim.start()
     try:
@@ -1392,10 +1694,16 @@ def phase_node_state(dev, tm, hwcheck, uuid: str, libtpumon: Path) -> dict:
              full_walk_ms=walk_ms, render_lines=lines, render_ms=render_ms,
              segment_s=NODE_STATE_SEGMENT_S, interval_s=NODE_STATE_INTERVAL_S,
              modes=list(NODE_STATE_MODES), poll_phase_ms=segments)
+        emit_device_read("node_state", {mode: segments[mode]["device_read"]["p99_ms"]
+                                        for mode in segments},
+                         polls={mode: segments[mode]["polls"] for mode in segments},
+                         sample_in_worker_ms={mode: segments[mode]["device_sample_in_worker_ms"]
+                                              for mode in segments},
+                         device_read_buckets_ms={mode: segments[mode]["device_read_buckets_ms"]
+                                                 for mode in segments})
 
         # (b) and (c): a subprocess exporter on a state dir and egress,
         # SIGKILLed mid-poll by chaos, then restarted on the same dirs.
-        recv.start()
         port = free_port()
         url = f"http://127.0.0.1:{port}"
         state_dir, egress_dir = Path(tmp.name, "state"), Path(tmp.name, "egress")
@@ -1520,7 +1828,7 @@ def phase_node_state(dev, tm, hwcheck, uuid: str, libtpumon: Path) -> dict:
         stim.stop()
         tmp.cleanup()
     launches = tm.tanh_matmul.launches
-    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    by_kernel = launch_counts(tm)
     emit("node_state", seconds=time.monotonic() - t_phase, burn_steps=stim.steps,
          launches_by_kernel=by_kernel)
     if launches <= 0:
@@ -1897,13 +2205,9 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
                 fail(f"no release in 30 s: pool a at {released}, alert {alert_states}")
             time.sleep(FLEET_OBSERVE_S)
         t_end = time.time()
-        # The node exporter's own poll phases, with the burn in another
-        # process (phase 13 ran the exporter beside the burn thread).
-        buckets = phase_buckets(metrics(node_port))
-        node_poll = {phase: {f"p{round(q * 100)}_ms": 1e3 * bucket_quantile(q, buckets[phase])
-                             for q in (0.5, 0.99)}
-                     for phase in POLL_PHASES if phase in buckets}
-        node_poll["polls"] = buckets.get("total", {}).get(math.inf)
+        # The node exporter's own poll phases and scrapes, with the burn in
+        # another process (phase 13 ran the exporter beside the burn thread).
+        node_poll = exporter_latency(metrics(node_port))
         root = f"http://127.0.0.1:{root_port}"
         store_answer = json.loads(http_get(
             f"{root}/api/v1/query_range?metric={FLEET_STORE_METRIC}&source=store"
@@ -2102,8 +2406,13 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
     emit("fleet_alert", **alerting)
     emit("fleet_processes", idle=cpu_and_rss("idle", "fill"), load=cpu_and_rss("fill", "release"),
          clock_ticks_per_s=os.sysconf("SC_CLK_TCK"), node_poll_phase_ms=node_poll)
+    emit_device_read("fleet", {"node": node_poll.get("device_read", {}).get("p99_ms")},
+                     polls={"node": node_poll["polls"]},
+                     scrape_p99_ms={"node": node_poll["scrape"]["p99_ms"]},
+                     scrapes={"node": node_poll["scrape"]["scrapes"]},
+                     device_read_buckets_ms={"node": node_poll["device_read_buckets_ms"]})
     launches = tm.tanh_matmul.launches
-    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    by_kernel = launch_counts(tm)
     emit("fleet", seconds=time.monotonic() - t_phase, burn_steps=stim.steps,
          launches_by_kernel=by_kernel, flat=flat, tree=tree, store=store, status=status,
          exits=exits, threshold=threshold, simulated_hosts=len(sim_nodes))
@@ -2328,30 +2637,38 @@ def phase_drills_libtpu() -> dict:
 
 
 def run_drill(tmp: str, name: str, module: str, args: tuple, want_ok: bool,
-              must_print: str) -> dict:
-    """One drill as a subprocess with its state (and TMPDIR) under ``tmp``.
-    Raises, with the end of its output, unless it exits as it must and
-    prints ``must_print``."""
+              must_print: str, memory: bool = False) -> dict:
+    """One drill as a subprocess with its state (and TMPDIR) under ``tmp``,
+    under DRILL_MEMORY_BOOTSTRAP with ``memory``. Raises, with the end of
+    its output, unless it exits as it must and prints ``must_print``."""
     state = Path(tmp, name)
     state.mkdir()
     flag = DRILL_STATE_FLAG.get(module)
     argv = [*args, flag, str(state / "state")] if flag else list(args)
+    env = dict(os.environ, TMPDIR=str(state))
     t0 = time.monotonic()
-    proc = run_port(module, *argv, timeout=DRILL_TIMEOUT_S,
-                    env=dict(os.environ, TMPDIR=str(state)))
+    if memory:
+        proc = subprocess.run([sys.executable, "-c", DRILL_MEMORY_BOOTSTRAP, module, *argv],
+                              cwd=REPO, capture_output=True, text=True,
+                              timeout=DRILL_TIMEOUT_S, env=env)
+    else:
+        proc = run_port(module, *argv, timeout=DRILL_TIMEOUT_S, env=env)
     seconds = time.monotonic() - t0
     record = {"name": name, "rc": proc.returncode, "seconds": seconds,
               "verdict": next((ln.strip() for ln in reversed(proc.stdout.splitlines())
                                if must_print in ln), None)}
-    if name == "scenario_suite":
+    if module == "loadgen.scenario" and (state / "state" / "result.json").exists():
         summary = json.loads((state / "state" / "result.json").read_text())
         record["scenarios"] = {n: [r["ok"], r.get("wall_s"), r.get("rss_growth_mb")]
                                for n, r in summary["scenarios"].items()}
+    if memory:
+        record["memory"] = {line["memory"]: line for line in map(
+            json.loads, (ln for ln in proc.stdout.splitlines() if ln.startswith('{"memory"')))}
     if (proc.returncode == 0) != want_ok or record["verdict"] is None:
         raise AssertionError(f"drills: {name} rc={proc.returncode}, want "
                              f"{'0' if want_ok else 'non-zero'} and {must_print!r}\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
-    if "scenarios" in record and not (len(record["scenarios"]) == DRILL_SCENARIOS and all(
+    if name == "scenario_suite" and not (len(record["scenarios"]) == DRILL_SCENARIOS and all(
             ok for ok, *_ in record["scenarios"].values())):
         raise AssertionError(f"drills: scenario suite {record['scenarios']}")
     return record
@@ -2527,8 +2844,8 @@ def phase_lint(uuid: str) -> dict:
              checks={"torch": torch_report["checks"], "nvml": nvml_report["checks"]})
         check_torch_loop(torch_report, "witnessed torch closed loop")
         check_nvml_loop(nvml_report, result["pid"], "witnessed nvml closed loop")
-        if not (result["launches"] > 0 and by_kernel["wgmma"] == result["launches"]
-                and by_kernel["wmma"] == 0):
+        if not (result["launches"] > 0 and by_kernel == {
+                **{name: 0 for name in by_kernel}, "wgmma": result["launches"]}):
             raise AssertionError(f"lint: the child's launches {result['launches']}, "
                                  f"by kernel {by_kernel}")
         lock_dump = os.path.join(tmp, "lock-witness.json")
@@ -2910,6 +3227,7 @@ def run_deployment(image: dict, tmp: Path, extra_args: tuple = (), load=None,
                 lambda: card_used(lambda v: v < seen["idle_used"] + fill_bytes / 2),
                 DEPLOY_START_S, "the card's fall after the release", phase="deploy")
         seen["usage"].append(usage())
+        seen["latency"] = exporter_latency(http_get(base + "/metrics")[1])
         seen["rss_by_mapping"] = rss_by_mapping(procs["exporter"].pid)
         sampled.set()
         sampler.join(timeout=5)
@@ -2993,7 +3311,13 @@ def phase_deploy(dev, tm, hwcheck) -> dict:
          vm_hwm_kept="VmHWM" in seen["rss"][-1], **cost, rss_by_mapping=seen["rss_by_mapping"],
          rc=node["rc"], drain_s=node["drain_s"],
          grace_s=seen["grace_s"], refused_attempts=node["refused_attempts"],
-         refused_loaded=node["refused_loaded"])
+         refused_loaded=node["refused_loaded"], poll_phase_ms=seen["latency"])
+    latency = seen["latency"]
+    emit_device_read("deploy", {"daemonset": latency.get("device_read", {}).get("p99_ms")},
+                     polls={"daemonset": latency["polls"]},
+                     scrape_p99_ms={"daemonset": latency["scrape"]["p99_ms"]},
+                     scrapes={"daemonset": latency["scrape"]["scrapes"]},
+                     device_read_buckets_ms={"daemonset": latency["device_read_buckets_ms"]})
     emit("deploy_aggregator", command=seen["aggregator_command"],
          rewrites=seen["aggregator_rewrites"],
          pool={"idle": seen["pool_idle"], "filled": seen["pool_filled"]},
@@ -3004,9 +3328,9 @@ def phase_deploy(dev, tm, hwcheck) -> dict:
     if changed:
         raise AssertionError(f"deploy: the read-only wheel changed: {changed[:20]}")
     launches = tm.tanh_matmul.launches
-    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    by_kernel = launch_counts(tm)
     emit("deploy", seconds=time.monotonic() - t_phase, burn_steps=stim.steps,
-         launches_by_kernel=by_kernel, card=nvidia_smi("name,power.limit"))
+         launches_by_kernel=by_kernel, card=card_line())
     if launches <= 0:
         raise AssertionError("no tanh_matmul launch during the deploy phase")
     check_all_wgmma(tm, "deploy", launches)
@@ -3030,7 +3354,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi("name,power.limit")
+    # A hang anywhere becomes every thread's traceback on stderr and a
+    # non-zero exit inside the run's time limit.
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    smi = card_line()
     uuid = nvidia_smi("uuid")
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          uuid=uuid, torch=torch.__version__, cuda=torch.version.cuda)
@@ -3075,7 +3402,7 @@ def main() -> int:
     # collective programs, the NVML closed loop, the node state phase, the
     # fleet phase, the lint phase's witnessed closed loop and the deploy
     # phase's load (the deployed exporter itself launches none).
-    names = (*SOURCES, "sgd", "online_softmax")
+    names = (*SOURCES, "stage_rows", "sgd", "online_softmax")
     by_path = {kernel: {"closed_loop": closed_loop.get(kernel, 0),
                         "train": train.get(kernel, 0), "parallel": parallel[kernel],
                         "nvml": nvml.get(kernel, 0), "node_state": node_state.get(kernel, 0),
@@ -3088,6 +3415,11 @@ def main() -> int:
         "source": f"tpu_pod_exporter_torch/kernels/csrc/{source}",
         "replaces": "tpu_pod_exporter/loadgen/workload.py:40",
     } for kernel, source in SOURCES.items()] + [{
+        "name": "stage_rows_bf16",
+        "route": "cuda",
+        "source": f"tpu_pod_exporter_torch/kernels/csrc/{STAGE_SOURCE}",
+        "replaces": "tpu_pod_exporter/loadgen/workload.py:40",
+    }, {
         "name": "sgd_update_bf16",
         "route": "cuda",
         "source": "tpu_pod_exporter_torch/kernels/csrc/sgd_update.cu",
@@ -3101,6 +3433,7 @@ def main() -> int:
     for record, kernel in zip(kernels, names):
         record.update(launches=sum(by_path[kernel].values()),
                       launches_by_path=by_path[kernel], **records[kernel])
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-"""The port on a CUDA card: both tanh_matmul kernels (wgmma for shapes TMA
-can address, wmma for the rest) against the plain version at ragged and
-misaligned shapes, which kernel each shape launched, the SGD update kernel
+"""The port on a CUDA card: both tanh_matmul routes (wgmma for shapes TMA
+can address as they lie, the staged route for the rest) against the plain
+version at ragged and misaligned shapes, which route each shape launched,
+the staging copy against its plain version bit for bit, the wmma kernel
+through ``launch``, the SGD update kernel
 against its plain version bit for bit, the gradient through the kernels,
 a training step on one card, ring attention's running-softmax kernel
 against its plain version at its edge cases, the ring program on one card
@@ -43,20 +45,27 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _operands(m, k, n, dev, offset=0, seed=0):
-    """h (m,k) and w (k,n) bf16; ``offset`` elements shift h off 16-byte
-    alignment while keeping it contiguous."""
+def _shifted(x, offset):
+    """A contiguous copy of ``x`` starting ``offset`` elements into a buffer."""
+    if not offset:
+        return x
+    buf = torch.empty((x.numel() + offset,), dtype=x.dtype, device=x.device)
+    return buf[offset:].view(x.shape).copy_(x)
+
+
+def _operands(m, k, n, dev, offset=0, seed=0, w_offset=0):
+    """h (m,k) and w (k,n) bf16; ``offset`` (``w_offset``) elements shift h
+    (w) off 16-byte alignment while keeping it contiguous."""
     g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    if offset:
-        buf = torch.empty((m * k + offset,), dtype=torch.bfloat16, device=dev)
-        h = buf[offset:].view(m, k).copy_(h)
     w = (torch.randn((k, n), generator=g, device=dev) * max(k, 1) ** -0.5).to(torch.bfloat16)
-    return h, w
+    return _shifted(h, offset), _shifted(w, w_offset)
 
 
+# The shapes that took the wmma kernel before the staged route; each now
+# launches the staged route once.
 @pytest.mark.parametrize("m,k,n,offset,kernel", [
-    (1, 1, 1, 0, "wmma"),
+    (1, 1, 1, 0, "staged"),
     (17, 24, 40, 0, "wgmma"),
     (128, 128, 128, 0, "wgmma"),
     (130, 72, 200, 0, "wgmma"),
@@ -64,11 +73,11 @@ def _operands(m, k, n, dev, offset=0, seed=0):
     (257, 1000, 4096, 0, "wgmma"),  # ragged M and K tiles
     (1, 64, 8, 0, "wgmma"),         # one row; N and K inside one tile
     (300, 136, 264, 0, "wgmma"),    # ragged M, N and K; a W box wholly past N
-    (257, 1000, 4095, 0, "wmma"),   # N not a multiple of 8
-    (64, 200, 136, 1, "wmma"),      # h not 16-byte aligned: element-wise staging
-    (300, 136, 264, 1, "wmma"),
-    (33, 7, 9, 0, "wmma"),          # K and N not multiples of 8
-    (16, 0, 16, 0, "wmma"),         # empty sum: tanh(0) = 0
+    (257, 1000, 4095, 0, "staged"),  # N not a multiple of 8: w staged, odd ldy
+    (64, 200, 136, 1, "staged"),     # h not 16-byte aligned: h staged
+    (300, 136, 264, 1, "staged"),
+    (33, 7, 9, 0, "staged"),         # K and N not multiples of 8: both staged
+    (16, 0, 16, 0, "staged"),        # empty sum: tanh(0) = 0
 ])
 def test_kernel_matches_plain(dev, m, k, n, offset, kernel):
     h, w = _operands(m, k, n, dev, offset)
@@ -80,6 +89,53 @@ def test_kernel_matches_plain(dev, m, k, n, offset, kernel):
     assert tm.tanh_matmul.launches_by_kernel == {
         name: count + (name == kernel) for name, count in by_kernel.items()}
     assert y.shape == (m, n) and y.dtype == torch.bfloat16 and y.device == h.device
+    err = (y.float() - tm.tanh_matmul_plain(h, w).float()).abs().max().item()
+    assert err <= LAYER_ATOL, f"max_abs_err {err} > {LAYER_ATOL}"
+
+
+@pytest.mark.parametrize("m,k,n,offset,w_offset", [
+    (70, 40, 33, 0, 1),     # odd N with w off alignment
+    (257, 136, 4095, 3, 5),  # both operands off alignment, odd N
+    (130, 8190, 8190, 0, 0),  # both extents ragged at the staged shape's widths
+])
+def test_staged_route_with_misaligned_w(dev, m, k, n, offset, w_offset):
+    h, w = _operands(m, k, n, dev, offset, w_offset=w_offset)
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    staged = tm.stage_rows.launches
+    y = tm.tanh_matmul(h, w)
+    torch.cuda.synchronize()
+    assert tm.tanh_matmul.launches_by_kernel == {
+        name: count + (name == "staged") for name, count in by_kernel.items()}
+    assert tm.stage_rows.launches == staged + len(
+        tm.staging(n, k, h.data_ptr(), w.data_ptr()))
+    err = (y.float() - tm.tanh_matmul_plain(h, w).float()).abs().max().item()
+    assert err <= LAYER_ATOL, f"max_abs_err {err} > {LAYER_ATOL}"
+
+
+@pytest.mark.parametrize("rows,cols,offset", [
+    (1, 1, 0), (5, 7, 1), (33, 17, 3), (64, 16, 0), (257, 4095, 5), (4096, 8190, 1),
+    (8190, 8190, 0),
+])
+def test_stage_rows_is_bit_equal_to_plain(dev, rows, cols, offset):
+    g = torch.Generator(device=dev).manual_seed(rows + cols)
+    x = _shifted(torch.randn((rows, cols), generator=g, device=dev).to(torch.bfloat16),
+                 offset)
+    ld = tm.row_stride(cols)
+    before = tm.stage_rows.launches
+    out = tm.stage_rows(x, ld)
+    torch.cuda.synchronize()
+    assert tm.stage_rows.launches == before + 1
+    assert out.shape == (rows, ld) and out.data_ptr() % 16 == 0
+    assert torch.equal(out.view(torch.int16), tm.stage_rows_plain(x, ld).view(torch.int16))
+
+
+def test_wmma_kernel_still_launches_through_launch(dev):
+    h, w = _operands(300, 136, 264, dev, 1)
+    by_kernel = dict(tm.tanh_matmul.launches_by_kernel)
+    y = tm.launch("wmma", h, w)
+    torch.cuda.synchronize()
+    assert tm.tanh_matmul.launches_by_kernel == {
+        name: count + (name == "wmma") for name, count in by_kernel.items()}
     err = (y.float() - tm.tanh_matmul_plain(h, w).float()).abs().max().item()
     assert err <= LAYER_ATOL, f"max_abs_err {err} > {LAYER_ATOL}"
 
@@ -115,7 +171,7 @@ def test_chain_goes_through_wgmma_only(dev):
     out = fn(params, x)
     torch.cuda.synchronize()
     assert tm.tanh_matmul.launches_by_kernel == {
-        "wgmma": by_kernel["wgmma"] + 3, "wmma": by_kernel["wmma"]}
+        **by_kernel, "wgmma": by_kernel["wgmma"] + 3}
     assert torch.isfinite(out.float()).all()
 
 

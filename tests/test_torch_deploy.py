@@ -45,6 +45,7 @@ PORT_DATA = (
     "native/tpumon.cc",
     "kernels/csrc/online_softmax.cu",
     "kernels/csrc/sgd_update.cu",
+    "kernels/csrc/stage_rows.cu",
     "kernels/csrc/tanh_matmul.cu",
     "kernels/csrc/tanh_matmul_sm90.cu",
     "analysis/baseline.json",

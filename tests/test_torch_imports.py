@@ -127,7 +127,8 @@ PORT_OWN = (
     "analysis/reviewed/lock-graph.json", "backend/nvml_ctypes.py",
     "backend/torchdev.py", "cudaenv.py", "entry.py", "kernels/__init__.py",
     "kernels/csrc/online_softmax.cu", "kernels/csrc/sgd_update.cu",
-    "kernels/csrc/tanh_matmul.cu", "kernels/csrc/tanh_matmul_sm90.cu",
+    "kernels/csrc/stage_rows.cu", "kernels/csrc/tanh_matmul.cu",
+    "kernels/csrc/tanh_matmul_sm90.cu",
     "kernels/online_softmax.py", "kernels/sgd.py", "kernels/tanh_matmul.py",
     "loadgen/__init__.py", "loadgen/__main__.py", "loadgen/parallel.py",
     "loadgen/selftest.py", "loadgen/sharded.py", "loadgen/workload.py",

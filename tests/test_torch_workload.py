@@ -49,6 +49,7 @@ class TestParityWithJax:
         (128, 4, 32),  # the entry() shape
         (96, 4, 32),
         (96, 4, 17),
+        (90, 4, 17),   # a width that is not a multiple of 8: the staged route on a card
     ])
     def test_forward_matches_jax(self, width, depth, batch, record_property):
         from tpu_pod_exporter.loadgen import workload as jwl

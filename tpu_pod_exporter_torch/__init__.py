@@ -4,10 +4,11 @@ A port of ``tpu_pod_exporter`` that imports ``torch`` and never ``jax``.
 It keeps the JAX package's module layout, so each counterpart sits at the
 same relative path:
 
-- ``kernels/tanh_matmul.py`` — the flagship layer ``tanh(h @ W)`` as
-  hand-written CUDA C++ kernels for Hopper, chosen by shape: wgmma fed by
-  TMA (``kernels/csrc/tanh_matmul_sm90.cu``) wherever TMA can address the
-  operands, wmma (``kernels/csrc/tanh_matmul.cu``) elsewhere;
+- ``kernels/tanh_matmul.py`` — the flagship layer ``tanh(h @ W)`` as a
+  hand-written CUDA C++ kernel for Hopper, wgmma fed by TMA
+  (``kernels/csrc/tanh_matmul_sm90.cu``): on the operands as they lie
+  wherever TMA can address them, else after ``kernels/csrc/stage_rows.cu``
+  copies them to 16-byte rows at an aligned base;
 - ``loadgen/workload.py`` — the synthetic load (matmul chain, HBM fill);
 - ``backend/nvml.py`` over ``backend/nvml_ctypes.py`` — every card's
   memory, utilization and process table from the driver's NVML library,

@@ -25,6 +25,15 @@ Every non-zero return raises :class:`NvmlDriverError` carrying the code as
 ``.value``; the backend maps it to :class:`NvmlError`. A library that does
 not load, or lacks a symbol, raises :class:`BackendError` at construction.
 Nothing is loaded when this module is imported.
+
+The library is loaded with ``ctypes.CDLL``, which releases the interpreter
+lock around every foreign call. That keeps a wedged NVML call (a driver or
+card fault) contained: the source supervisor abandons it at its deadline
+while the poll loop and ``/metrics`` and ``/healthz`` go on. The price is
+that each of a sample's 9 returns waits for the lock while another thread
+of the process runs Python, up to ``sys.getswitchinterval()`` (5 ms) a call.
+``ctypes.PyDLL`` would keep the lock through each call and so freeze the
+whole process for as long as a call blocks.
 """
 
 from __future__ import annotations

@@ -4,9 +4,21 @@
 //
 // Replaces the layer body that XLA fuses on the TPU,
 // tpu_pod_exporter/loadgen/workload.py:40-43 (forward.layer), run once per
-// layer of every forward. It takes every shape whose rows TMA can address
-// (K and N multiples of 8, h and W 16-byte aligned, K > 0); tanh_matmul.cu
-// takes the rest.
+// layer of every forward. Two C entries launch it:
+//
+// - tanh_matmul_bf16_sm90, the aligned main path: every shape whose rows TMA
+//   can address as they lie (K and N multiples of 8, h and W 16-byte
+//   aligned, K > 0), each row stride equal to its extent;
+// - tanh_matmul_bf16_sm90_strided, the staged route, for every other shape:
+//   row strides ldh, ldw and ldy apart from K and N. TMA needs a row stride
+//   that is a multiple of 16 bytes and a 16-byte-aligned base, but not an
+//   extent that is a multiple of 8: it fills reads past K or N with zeros as
+//   it does for any ragged tile. So the wrapper (kernels/tanh_matmul.py)
+//   copies an operand that fails those two demands into a buffer with
+//   ld = roundup(extent, 8) at an aligned base (stage_rows.cu), and y is
+//   written in place at ldy = N, as bf16 pairs where ldy is even and y
+//   4-byte aligned, else one value at a time. K = 0 reads nothing and
+//   stores tanh(0) = 0.
 //
 // Bound on an H100 SXM at the main-path shape (M=4096, K=N=8192): the
 // product is 2*M*N*K = 5.5e11 operations, 0.556 ms at the 989 TFLOP/s
@@ -192,10 +204,28 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* __restrict__ y, int N,
       __floats2bfloat162_rn(tanhf(a), tanhf(b));
 }
 
+// Columns col and col + 1 of a row of y at row stride ldy: one bf16 pair
+// where `pairs` (ldy even, y 4-byte aligned) and col + 1 < N, else the
+// values inside N one at a time.
+__device__ __forceinline__ void store_strided(__nv_bfloat16* __restrict__ y, int N,
+                                              int ldy, bool pairs, int row, int col,
+                                              float a, float b) {
+  __nv_bfloat16* p = y + static_cast<size_t>(row) * ldy + col;
+  if (pairs && col + 1 < N) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(tanhf(a), tanhf(b));
+  } else {
+    p[0] = __float2bfloat16_rn(tanhf(a));
+    if (col + 1 < N) p[1] = __float2bfloat16_rn(tanhf(b));
+  }
+}
+
+// kStrided: y's row stride is ldy (the staged route); otherwise it is N and
+// N is even (the aligned main path, whose code this leaves as it was).
+template <bool kStrided>
 __global__ void __launch_bounds__(THREADS, 1)
 tanh_matmul_sm90_kernel(const __grid_constant__ CUtensorMap map_h,
                         const __grid_constant__ CUtensorMap map_w,
-                        __nv_bfloat16* __restrict__ y, int M, int N, int K) {
+                        __nv_bfloat16* __restrict__ y, int M, int N, int K, int ldy) {
   extern __shared__ unsigned char smem[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
@@ -280,12 +310,28 @@ tanh_matmul_sm90_kernel(const __grid_constant__ CUtensorMap map_h,
     const int lane = threadIdx.x % 32;
     const int row = m0 + c * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
     const int col0 = n0 + 2 * (lane % 4);
+    if constexpr (!kStrided) {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = col0 + 8 * j;
-      if (col < N) {  // N is even, so col + 1 < N too
-        if (row < M) store_pair(y, N, row, col, acc[4 * j], acc[4 * j + 1]);
-        if (row + 8 < M) store_pair(y, N, row + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = col0 + 8 * j;
+        if (col < N) {  // N is even, so col + 1 < N too
+          if (row < M) store_pair(y, N, row, col, acc[4 * j], acc[4 * j + 1]);
+          if (row + 8 < M) store_pair(y, N, row + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+    } else {
+      // col is even, so a pair starts 4-byte aligned where ldy is even.
+      const bool pairs =
+          ldy % 2 == 0 && reinterpret_cast<std::uintptr_t>(y) % 4 == 0;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = col0 + 8 * j;
+        if (col < N) {
+          if (row < M)
+            store_strided(y, N, ldy, pairs, row, col, acc[4 * j], acc[4 * j + 1]);
+          if (row + 8 < M)
+            store_strided(y, N, ldy, pairs, row + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
+        }
       }
     }
   }
@@ -319,13 +365,13 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
   return err;
 }
 
-// A 2-D bf16 row-major matrix (rows x cols) read in boxes of box_cols x
-// box_rows, 128-byte swizzled, zeros past its edge.
+// A 2-D bf16 row-major matrix (rows x cols, row stride ld elements) read in
+// boxes of box_cols x box_rows, 128-byte swizzled, zeros past its edge.
 CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                  uint64_t rows, uint64_t cols, uint32_t box_cols,
+                  uint64_t rows, uint64_t cols, uint64_t ld, uint32_t box_cols,
                   uint32_t box_rows) {
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint64_t strides[1] = {ld * 2};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
@@ -334,21 +380,11 @@ CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-}  // namespace
-
-// Launch y = tanh(h @ w) on `stream` (a cudaStream_t, or null for the
-// legacy default stream). h is (M,K), w is (K,N), y is (M,N), all bf16,
-// row-major and contiguous; K and N multiples of 8, K > 0, h, w and y
-// 16-byte aligned. Returns 0, a cudaError_t (> 0), or minus the CUresult
-// of a failed tensor-map encode (< 0).
-extern "C" int tanh_matmul_bf16_sm90(const void* h, const void* w, void* y, int M,
-                                     int N, int K, void* stream) {
-  const auto misaligned = [](const void* p) {
-    return reinterpret_cast<std::uintptr_t>(p) % 16 != 0;
-  };
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 || misaligned(h) ||
-      misaligned(w) || misaligned(y))
-    return static_cast<int>(cudaErrorInvalidValue);
+// Launch the kernel on `stream` once the caller has checked the arguments.
+// K = 0 reads nothing: the maps stay zero and are never used.
+template <bool kStrided>
+int launch(const void* h, const void* w, void* y, int M, int N, int K, int ldh, int ldw,
+           int ldy, void* stream) {
   const long long tiles =
       static_cast<long long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   if (tiles > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -360,19 +396,55 @@ extern "C" int tanh_matmul_bf16_sm90(const void* h, const void* w, void* y, int 
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  EncodeTiled encode;
-  err = encode_tiled(&encode);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap map_h, map_w;
-  CUresult res = make_map(encode, &map_h, h, M, K, BK, BM);
-  if (res == CUDA_SUCCESS) res = make_map(encode, &map_w, w, K, N, B_BOX, BK);
-  if (res != CUDA_SUCCESS) return -static_cast<int>(res);
+  CUtensorMap map_h{}, map_w{};
+  if (K > 0) {
+    EncodeTiled encode;
+    err = encode_tiled(&encode);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    CUresult res = make_map(encode, &map_h, h, M, K, ldh, BK, BM);
+    if (res == CUDA_SUCCESS) res = make_map(encode, &map_w, w, K, N, ldw, B_BOX, BK);
+    if (res != CUDA_SUCCESS) return -static_cast<int>(res);
+  }
 
-  err = cudaFuncSetAttribute(tanh_matmul_sm90_kernel,
+  err = cudaFuncSetAttribute(tanh_matmul_sm90_kernel<kStrided>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tanh_matmul_sm90_kernel<<<static_cast<unsigned>(tiles), THREADS, SMEM_BYTES,
-                            static_cast<cudaStream_t>(stream)>>>(
-      map_h, map_w, static_cast<__nv_bfloat16*>(y), M, N, K);
+  tanh_matmul_sm90_kernel<kStrided><<<static_cast<unsigned>(tiles), THREADS, SMEM_BYTES,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      map_h, map_w, static_cast<__nv_bfloat16*>(y), M, N, K, ldy);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool misaligned(const void* p, std::uintptr_t bytes) {
+  return reinterpret_cast<std::uintptr_t>(p) % bytes != 0;
+}
+
+}  // namespace
+
+// Launch y = tanh(h @ w) on `stream` (a cudaStream_t, or null for the
+// legacy default stream). h is (M,K), w is (K,N), y is (M,N), all bf16,
+// row-major and contiguous; K and N multiples of 8, K > 0, h, w and y
+// 16-byte aligned. Returns 0, a cudaError_t (> 0), or minus the CUresult
+// of a failed tensor-map encode (< 0).
+extern "C" int tanh_matmul_bf16_sm90(const void* h, const void* w, void* y, int M,
+                                     int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || N % 8 != 0 || misaligned(h, 16) ||
+      misaligned(w, 16) || misaligned(y, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<false>(h, w, y, M, N, K, K, N, N, stream);
+}
+
+// The same product at row strides of their own: h (M,K) at row stride ldh,
+// w (K,N) at ldw, y (M,N) at ldy, in elements. Any K >= 0 and N; for K > 0,
+// ldh and ldw multiples of 8 at least K and N, h and w 16-byte aligned (what
+// TMA demands); y 2-byte aligned, ldy >= N. Returns as tanh_matmul_bf16_sm90.
+extern "C" int tanh_matmul_bf16_sm90_strided(const void* h, const void* w, void* y, int M,
+                                             int N, int K, int ldh, int ldw, int ldy,
+                                             void* stream) {
+  if (M <= 0 || N <= 0 || K < 0 || ldy < N || misaligned(y, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (K > 0 && (ldh < K || ldw < N || ldh % 8 != 0 || ldw % 8 != 0 ||
+                misaligned(h, 16) || misaligned(w, 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(h, w, y, M, N, K, ldh, ldw, ldy, stream);
 }

@@ -10,29 +10,43 @@ Bound on an H100 SXM at the main-path shape (M=4096, K=N=8192): 5.5e11
 operations take 0.556 ms at the 989 TFLOP/s dense bf16 peak, its 256 MiB of
 traffic 0.08 ms at 3.35 TB/s, so the tensor cores bound it.
 
-Two hand kernels, chosen by shape before the launch (:func:`sm90_eligible`):
+Two routes, chosen by shape before the launch (:func:`sm90_eligible`), both on the
+wgmma kernel of ``csrc/tanh_matmul_sm90.cu``: a warp-specialised kernel in
+which one producer thread keeps TMA loads of 128x64 slices of ``h`` and
+64x256 slices of ``w`` in flight through a 4-stage ring, and two consumer
+warpgroups run ``wgmma.m64n256k16`` on them (``w`` read MN-major, never
+transposed), with ``tanhf`` on the registers.
 
-- ``wgmma`` (``csrc/tanh_matmul_sm90.cu``, C entry ``tanh_matmul_bf16_sm90``)
-  for every shape TMA can address (K > 0, K and N multiples of 8, ``h`` and
-  ``w`` 16-byte aligned), the main path among them: a warp-specialised
-  kernel in which one producer thread keeps TMA loads of 128x64 slices of
-  ``h`` and 64x256 slices of ``w`` in flight through a 4-stage ring, and two
-  consumer warpgroups run ``wgmma.m64n256k16`` on them (``w`` read
-  MN-major, never transposed), with ``tanhf`` on the registers;
-- ``wmma`` (``csrc/tanh_matmul.cu``, C entry ``tanh_matmul_bf16``) for the
-  rest (K or N not a multiple of 8, a misaligned ``h`` or ``w``, K = 0):
-  128x128 tiles of wmma fragments, two cp.async stages, masked edges.
+- ``wgmma`` (C entry ``tanh_matmul_bf16_sm90``) for every shape TMA can
+  address as it lies (K > 0, K and N multiples of 8, ``h`` and ``w``
+  16-byte aligned), the main path among them;
+- ``staged`` (C entry ``tanh_matmul_bf16_sm90_strided``) for the rest. TMA
+  needs 16-byte row strides and 16-byte-aligned bases, but fills reads past
+  K or N with zeros whatever the extent. So :func:`stage_rows`
+  (``csrc/stage_rows.cu``) first copies ``h`` when K is not a multiple of 8
+  or ``h`` is misaligned, and ``w`` when N is not or ``w`` is, each into a
+  buffer with row stride ``roundup(extent, 8)`` at an aligned base
+  (:func:`staging`); the kernel then reads them at those strides and
+  writes ``y`` in place. K = 0 stages nothing and gives ``tanh(0) = 0``.
 
-Every source under ``csrc/`` (these two, ``sgd_update.cu``, see
-:mod:`.sgd`, and ``online_softmax.cu``, see :mod:`.online_softmax`) is compiled by one ``nvcc`` call at first CUDA use into one
-library in ``tpu_pod_exporter_torch/_build/`` (file name keyed by a hash of
-every file under ``csrc/`` and the flags) and bound through ``ctypes``.
+``wmma`` (``csrc/tanh_matmul.cu``, C entry ``tanh_matmul_bf16``: 128x128
+tiles of wmma fragments, two cp.async stages, masked edges) was the route
+for those shapes before the staged one. No shape picks it now; it is
+reachable only as ``launch("wmma", ...)``, to be timed beside the staged
+route.
+
+Every source under ``csrc/`` (these, ``sgd_update.cu``, see :mod:`.sgd`, and
+``online_softmax.cu``, see :mod:`.online_softmax`) is compiled by one
+``nvcc`` call at first CUDA use into one library in
+``tpu_pod_exporter_torch/_build/`` (file name keyed by a hash of every file
+under ``csrc/`` and the flags) and bound through ``ctypes``.
 
 :func:`tanh_matmul` takes :func:`tanh_matmul_plain` only for CPU tensors.
-For CUDA tensors it launches one of the two kernels or raises; there is no
-fallback from one to the other. ``tanh_matmul.launches`` counts kernel
-launches, ``tanh_matmul.launches_by_kernel`` counts them by kernel; both
-count forward launches only.
+For CUDA tensors it launches its route or raises; there is no fallback
+from one route to another. ``tanh_matmul.launches`` counts kernel
+launches, ``tanh_matmul.launches_by_kernel`` counts them by route (one a
+layer; both count forward launches only); ``stage_rows.launches`` counts
+the staging copies.
 
 The gradient (:class:`TanhMatmul`) is the same code on both devices:
 ``g = tanh_backward(dy, y)``, ``dh = g @ w.T``, ``dw = h.T @ g``, bf16
@@ -65,8 +79,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills, into the log
 )
 
-# Kernel name -> its C entry in the library.
-ENTRIES = {"wgmma": "tanh_matmul_bf16_sm90", "wmma": "tanh_matmul_bf16"}
+# Route -> the C entry it launches.
+ENTRIES = {"wgmma": "tanh_matmul_bf16_sm90", "staged": "tanh_matmul_bf16_sm90_strided",
+           "wmma": "tanh_matmul_bf16"}
 # Every C entry in the library -> its argument types. Pointers and the
 # stream go as c_void_p: left to ctypes' default they would pass as 32-bit
 # ints and lose their high bits.
@@ -77,7 +92,13 @@ _TANH_MATMUL_ARGS = (
 )
 SIGNATURES = {
     "tanh_matmul_bf16_sm90": _TANH_MATMUL_ARGS,
+    # h, w, y, M, N, K, ldh, ldw, ldy, stream
+    "tanh_matmul_bf16_sm90_strided": (
+        *_TANH_MATMUL_ARGS[:6], ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p),
     "tanh_matmul_bf16": _TANH_MATMUL_ARGS,
+    # src, dst, rows, cols, ld, stream
+    "stage_rows_bf16": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p),
     # p, g, n, lr, stream (kernels/sgd.py)
     "sgd_update_bf16": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                         ctypes.c_float, ctypes.c_void_p),
@@ -128,7 +149,7 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, str]:
-    """Compile both kernels in one nvcc call, unless the library for these
+    """Compile every kernel in one nvcc call, unless the library for these
     sources exists; return its path and nvcc's output ("" when it was
     already built).
 
@@ -194,15 +215,77 @@ def _check(h: torch.Tensor, w: torch.Tensor) -> None:
 
 def sm90_eligible(m: int, n: int, k: int, h_ptr: int, w_ptr: int) -> bool:
     """Whether the wgmma kernel takes h (m,k) at ``h_ptr`` times w (k,n) at
-    ``w_ptr``: TMA needs row strides of 16 bytes (k and n multiples of 8
-    bf16 values) and 16-byte aligned bases, and the kernel a nonempty sum.
-    Any m >= 1 is fine: TMA fills rows past the matrix with zeros."""
+    ``w_ptr`` as they lie: TMA needs row strides of 16 bytes (k and n
+    multiples of 8 bf16 values) and 16-byte aligned bases, and the kernel a
+    nonempty sum. Any m >= 1 is fine: TMA fills rows past the matrix with
+    zeros."""
     return k > 0 and k % 8 == 0 and n % 8 == 0 and h_ptr % 16 == 0 and w_ptr % 16 == 0
 
 
+def row_stride(cols: int) -> int:
+    """The row stride, in elements, of a staged copy: ``cols`` rounded up to
+    8 bf16 values, 16 bytes."""
+    return -(-cols // 8) * 8
+
+
+def staging(n: int, k: int, h_ptr: int, w_ptr: int) -> dict:
+    """The operands the staged route copies, each with its copy's row
+    stride: ``h`` where k is not a multiple of 8 or ``h_ptr`` not 16-byte
+    aligned, ``w`` where n is not or ``w_ptr`` is not. Nothing for k = 0,
+    where there is nothing to read."""
+    plan = {}
+    if k > 0 and (k % 8 or h_ptr % 16):
+        plan["h"] = row_stride(k)
+    if k > 0 and (n % 8 or w_ptr % 16):
+        plan["w"] = row_stride(n)
+    return plan
+
+
+def stage_rows_plain(x: torch.Tensor, ld: int) -> torch.Tensor:
+    """The staging copy in plain PyTorch: x (rows, cols) into a new (rows,
+    ld) buffer, zeros in the pad columns."""
+    out = torch.zeros((x.shape[0], ld), dtype=x.dtype, device=x.device)
+    out[:, :x.shape[1]] = x
+    return out
+
+
+def stage_rows(x: torch.Tensor, ld: int) -> torch.Tensor:
+    """x (rows, cols) bf16, contiguous, copied into a new (rows, ld) buffer
+    with zeros in the pad columns (ld a multiple of 8, at least cols). On a
+    CUDA tensor it launches ``csrc/stage_rows.cu`` on the current stream
+    (counted in ``stage_rows.launches``) or raises; on a CPU tensor it takes
+    :func:`stage_rows_plain`."""
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"expected a contiguous 2-D bf16 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    rows, cols = x.shape
+    if ld < cols or ld % 8:
+        raise ValueError(f"row stride {ld} for {cols} columns: not a multiple of 8 at least cols")
+    if x.device.type == "cpu":
+        return stage_rows_plain(x, ld)
+    if x.device.type != "cuda":
+        raise ValueError(f"stage_rows runs on cuda or cpu, not {x.device}")
+    out = torch.empty((rows, ld), dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.stage_rows_bf16(x.data_ptr(), out.data_ptr(), rows, cols, ld, stream)
+    if err != 0:
+        raise RuntimeError(f"stage_rows_bf16 launch failed: CUDA error {err}")
+    stage_rows.launches += 1
+    return out
+
+
+stage_rows.launches = 0
+
+
 def launch(kernel: str, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the hand kernel ``kernel`` ("wgmma" or "wmma") on CUDA
-    operands and return y; raises if the launch fails. Counts the launch."""
+    """Launch the route ``kernel`` ("wgmma", "staged" or "wmma") on CUDA
+    operands and return y; raises if a launch fails. Counts one launch of
+    the route (and, for "staged", each staging copy in
+    ``stage_rows.launches``)."""
     _check(h, w)
     if h.device.type != "cuda":
         raise ValueError(f"{kernel} kernel runs on cuda, not {h.device}")
@@ -215,9 +298,19 @@ def launch(kernel: str, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = library()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = getattr(lib, entry)(
-            h.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k, stream
-        )
+        if kernel == "staged":
+            plan = staging(n, k, h.data_ptr(), w.data_ptr())
+            # The copies live until the launch is queued; the caching
+            # allocator hands their memory out again only behind it on
+            # this stream.
+            hs = stage_rows(h, plan["h"]) if "h" in plan else h
+            ws = stage_rows(w, plan["w"]) if "w" in plan else w
+            err = lib.tanh_matmul_bf16_sm90_strided(
+                hs.data_ptr(), ws.data_ptr(), y.data_ptr(), m, n, k,
+                plan.get("h", k), plan.get("w", n), n, stream)
+        else:
+            err = getattr(lib, entry)(
+                h.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k, stream)
     if err < 0:
         raise RuntimeError(
             f"{entry}: cuTensorMapEncodeTiled failed with CUresult {-err}"
@@ -238,7 +331,7 @@ def _forward(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     m, k = h.shape
     n = w.shape[1]
     eligible = sm90_eligible(m, n, k, h.data_ptr(), w.data_ptr())
-    return launch("wgmma" if eligible else "wmma", h, w)
+    return launch("wgmma" if eligible else "staged", h, w)
 
 
 class TanhMatmul(torch.autograd.Function):
