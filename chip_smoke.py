@@ -75,7 +75,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                utilization rises, the process table sums to the fill, this
                process holds the card's node, the pod's memory rises by the
                fill, the reference's {pid, pod} series is there, and every
-               launch is on the wgmma kernel; ``--backend auto`` picks NVML;
+               launch is on the wgmma kernel (the exporter records every
+               sample it serves to the capture's h100-trace.jsonl);
+               ``--backend auto`` picks NVML;
                then NvmlBackend.sample() times over 200 calls idle and under
                the burn, and NVML's used beside the allocator's count; then
                each NVML call of one sample() timed, the binding's library
@@ -114,14 +116,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                goes pending, firing, resolved, with webhook seqs 1 and 2;
                ``status --tree`` and ``status`` on the node exit 0 and show
                121 cards, the firing alert and the card; every tier exits 0
-               on SIGTERM. Prints the round times, the stream's lag, the
-               alert's latency, each process's CPU and RSS, and the node
-               exporter's poll phases, device_read p99 beside the 10 ms
-               limit and scrape p99.
+               on SIGTERM. The node's /metrics body with the smoke pod at the
+               fill and that ``status`` document are captured
+               (h100-metrics.txt, h100-status.json). Prints the round times,
+               the stream's lag, the alert's latency, each process's CPU and
+               RSS, and the node exporter's poll phases, device_read p99
+               beside the 10 ms limit and scrape p99, each NVML call's and
+               each sample's wall and CPU ms inside that exporter (it runs
+               under NVML_TIMING_BOOTSTRAP; the samples over the limit with
+               their calls) and its threads' run-queue waits from
+               /proc/<pid>/task/*/schedstat, idle, under load and after.
 15. drills    — the NVML probe (``probe --runtime nvml``) on the card: one
                device, nvidia-smi's UUID, the minor of the node this
                process holds, used memory up by the 16 GiB fill and down
-               after its release; phase 12's hwcheck artifact carries it;
+               after its release (the filled report is captured,
+               h100-probe.json); phase 12's hwcheck artifact carries it;
                the liveness watch writes one record with the card's nodes.
                ``--backend libtpu``: without grpc the exporter exits
                non-zero naming it; with grpc, the committed probe fixture's
@@ -174,9 +183,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                stays under the manifest's memory limit (its CPU seconds a
                second printed beside the CPU limit), both drain on SIGTERM
                with exit 0 inside terminationGracePeriodSeconds, and the
-               unpacked wheel is unchanged. Prints the exporter's poll
-               phases, device_read p99 beside the 10 ms limit and scrape
-               p99.
+               unpacked wheel is unchanged. The aggregator's /metrics body
+               with the pool at the fill is captured (h100-aggregate.txt).
+               Prints the exporter's poll phases, device_read p99 beside the
+               10 ms limit, scrape p99 and its threads' run-queue waits
+               under load and after (schedstat, read from outside).
+18. capture   — the manifest of chiprun_out/h100-capture/ (nvidia-smi's
+               name and power limit, driver version and memory total; the
+               torch and CUDA versions; the UTC time; each file's phase,
+               size and sha256), then every file replayed through the port
+               (``check_capture``: the recording through RecordedBackend and
+               a Collector, the bodies through the parsers and a
+               SliceAggregator, the status document, the probe's answers
+               through a simulated driver) and ``trace --replay`` and
+               ``history --replay`` on the recording, each exiting 0.
 
 Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -192,6 +212,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -540,6 +561,82 @@ finally:
         "refused_loaded": sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)}),
         flush=True)
 """ % (DEPLOY_REFUSED,)
+# The fleet phase's node exporter runs under this (argv: the exporter's
+# arguments): each NVML call of the port's ctypes binding and each
+# NvmlBackend.sample() is timed on the thread that makes it, in wall ms and
+# the CPU ms charged to that thread (none while it waits for the
+# interpreter lock or sleeps in a futex). At exit it prints one JSON line:
+# per symbol the calls, median, p99 and largest of each, and the native ids
+# of the calling threads; and each sample over the device-read limit with
+# the calls made inside it.
+NVML_TIMING_BOOTSTRAP = """
+import atexit, json, math, runpy, sys, threading, time
+from tpu_pod_exporter_torch.backend import nvml, nvml_ctypes
+
+LIMIT_MS = %r
+calls, slow, local = {}, [], threading.local()
+
+
+def timed(name, fn):
+    def call(*args):
+        inside = getattr(local, "inside", None)
+        if name == "sample":
+            local.inside = []
+        t0, c0 = time.perf_counter(), time.thread_time()
+        try:
+            return fn(*args)
+        finally:
+            wall = (time.perf_counter() - t0) * 1e3
+            cpu = (time.thread_time() - c0) * 1e3
+            calls.setdefault(name, []).append((wall, cpu, threading.get_native_id()))
+            if name == "sample":
+                if wall > LIMIT_MS:
+                    slow.append({"wall_ms": wall, "cpu_ms": cpu, "calls": local.inside})
+                local.inside = None
+            elif inside is not None:
+                inside.append([name, wall, cpu])
+    return call
+
+
+init = nvml_ctypes.CtypesNvmlDriver.__init__
+
+
+def timed_init(self, *args, **kwargs):
+    init(self, *args, **kwargs)
+    self._fns = {name: timed(name, fn) for name, fn in self._fns.items()}
+    self._procs = timed(self.process_symbol, self._procs)
+
+
+def quantiles(values):
+    ordered = sorted(values)
+    return {"median": ordered[len(ordered) // 2],
+            "p99": ordered[math.ceil(0.99 * len(ordered)) - 1], "max": ordered[-1]}
+
+
+def report():
+    print(json.dumps({"nvml_call_times": {
+        name: {"calls": len(rows), "wall_ms": quantiles([r[0] for r in rows]),
+               "cpu_ms": quantiles([r[1] for r in rows]),
+               "tids": sorted({r[2] for r in rows})}
+        for name, rows in calls.items()}, "slow_samples": slow}), flush=True)
+
+
+nvml_ctypes.CtypesNvmlDriver.__init__ = timed_init
+nvml.NvmlBackend.sample = timed("sample", nvml.NvmlBackend.sample)
+atexit.register(report)
+sys.argv = ["tpu_pod_exporter_torch", *sys.argv[1:]]
+runpy.run_module("tpu_pod_exporter_torch", run_name="__main__", alter_sys=True)
+""" % (DEVICE_READ_LIMIT_MS,)
+# What the card serves along the GPU node path, written as it came by the
+# phase that takes it into chiprun_out/h100-capture/, then listed with its
+# size and sha256 in a manifest and replayed through the port (phase 18). They are committed unchanged as
+# tests/fixtures/h100-*, which the CPU tests replay through both packages.
+CAPTURE_DIR = REPO / "chiprun_out" / "h100-capture"
+CAPTURE_MANIFEST = "h100-capture.json"
+CAPTURES = {"h100-trace.jsonl": "nvml", "h100-metrics.txt": "fleet",
+            "h100-status.json": "fleet", "h100-probe.json": "drills",
+            "h100-aggregate.txt": "deploy"}
+CAPTURE_MAX_BYTES = 512 << 10
 
 
 def emit(phase: str, **fields) -> None:
@@ -1353,6 +1450,7 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
         report = hwcheck.run_check(
             backend="nvml", idle_s=2.0, load_s=8.0, stimulus=stim,
             exporter_args={"process_metrics": True, "legacy_metrics": True,
+                           "record_to": str(CAPTURE_DIR / "h100-trace.jsonl"),
                            **kubelet_fixture(tmp, torch_uuid)})
     by_kernel = launch_counts(tm)
     emit("nvml_closed_loop", report=report, pid=os.getpid(), launches_by_kernel=by_kernel,
@@ -1906,6 +2004,44 @@ class SseReader:
         return self.frames
 
 
+def thread_schedstat(pid: int) -> dict:
+    """{tid: [on-CPU ns, run-queue wait ns, timeslices]} of each thread of a
+    live process, from /proc/<pid>/task/<tid>/schedstat; {} where the
+    kernel keeps no such file."""
+    out = {}
+    try:
+        tids = os.listdir(f"/proc/{pid}/task")
+    except OSError:
+        return out
+    for tid in tids:
+        try:
+            with open(f"/proc/{pid}/task/{tid}/schedstat") as f:
+                out[int(tid)] = [int(x) for x in f.read().split()[:3]]
+        except (OSError, ValueError):  # the thread has exited, or no schedstat
+            continue
+    return out
+
+
+def run_queue_wait(before: dict, after: dict, seconds: float, tids=()) -> dict:
+    """What a process's threads waited on the run queue between two
+    ``thread_schedstat`` reads ``seconds`` apart: in all, a second, the
+    threads', the largest thread's, a timeslice on average, and the
+    threads ``tids`` (those that called NVML) each."""
+    if not after:
+        return {"schedstat": False}
+    zero = [0, 0, 0]
+    delta = {tid: [a - b for a, b in zip(now, before.get(tid, zero))]
+             for tid, now in after.items()}
+    wait = sum(d[1] for d in delta.values()) / 1e6
+    slices = sum(d[2] for d in delta.values())
+    return {"schedstat": True, "seconds": seconds, "threads": len(delta),
+            "wait_ms": wait, "wait_ms_per_s": wait / seconds,
+            "on_cpu_ms": sum(d[0] for d in delta.values()) / 1e6, "timeslices": slices,
+            "wait_ms_per_timeslice": wait / slices if slices else None,
+            "largest_thread_wait_ms": max(d[1] for d in delta.values()) / 1e6,
+            "nvml_threads_wait_ms": {str(t): delta[t][1] / 1e6 for t in tids if t in delta}}
+
+
 def proc_usage(pid: int) -> tuple[float, float]:
     """(user + system CPU seconds, resident bytes) of a live process, from
     /proc/<pid>/stat and /proc/<pid>/status."""
@@ -1953,9 +2089,10 @@ def nearest_rank_ms(values: list) -> dict:
 
 def fleet_node_argv(port: int, kubelet: dict) -> list:
     """The real node of phase 14: the port's exporter on the card through
-    NVML, with the process scan and checkpoint attribution."""
+    NVML, with the process scan and checkpoint attribution, under
+    NVML_TIMING_BOOTSTRAP."""
     node, pool = FLEET_REAL_NODE
-    return [sys.executable, "-m", "tpu_pod_exporter_torch", "--host", "127.0.0.1",
+    return [sys.executable, "-c", NVML_TIMING_BOOTSTRAP, "--host", "127.0.0.1",
             "--port", str(port), "--interval-s", str(FLEET_INTERVAL_S),
             "--log-level", "warning", "--backend", "nvml", "--process-metrics",
             "--attribution", "checkpoint", "--checkpoint-path", kubelet["checkpoint_path"],
@@ -2040,7 +2177,13 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
 
     def usage_now() -> dict:
         return {"t": time.time(),
-                "procs": {name: proc_usage(proc.pid) for name, proc in procs.items()}}
+                "procs": {name: proc_usage(proc.pid) for name, proc in procs.items()},
+                "node_threads": thread_schedstat(procs["node"].pid)}
+
+    def pod_filled(body: bytes) -> bytes | None:
+        pod = [s.value for s in samples_of(body, "gpu_pod_memory_used_bytes")
+               if s.labels.get("pod") == SMOKE_POD]
+        return body if pod and max(pod) >= FILL_BYTES else None
 
     reset_counts(tm)
     stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
@@ -2173,7 +2316,7 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
         usage["fill"] = usage_now()
         t_fill = time.time()
         stim.start()
-        status_tree = status_node = None
+        status_tree = status_node = node_filled = None
         while True:
             obs = observe("load")
             if obs["alert"] == "firing" and status_tree is None:
@@ -2184,6 +2327,8 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
                     cwd=REPO, capture_output=True, text=True, timeout=60)
                 status_node = subprocess.run(fleet_status_node_argv(kubelet), cwd=REPO,
                                              capture_output=True, text=True, timeout=60)
+                node_filled = wait_for(lambda: pod_filled(metrics(node_port)), 10,
+                                       "the node's pod at the fill", phase="fleet")
             if status_tree is not None and time.time() - t_fill >= FLEET_LOAD_S:
                 break
             if time.time() - t_fill > FLEET_LOAD_S + 30:
@@ -2205,6 +2350,7 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
                 fail(f"no release in 30 s: pool a at {released}, alert {alert_states}")
             time.sleep(FLEET_OBSERVE_S)
         t_end = time.time()
+        usage["end"] = usage_now()
         # The node exporter's own poll phases and scrapes, with the burn in
         # another process (phase 13 ran the exporter beside the burn thread).
         node_poll = exporter_latency(metrics(node_port))
@@ -2231,6 +2377,10 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
             except subprocess.TimeoutExpired:
                 exits[name] = None
         posts = receiver.posts()
+        node_calls = [json.loads(line) for line in logs["node"].read_text().splitlines()
+                      if line.startswith('{"nvml_call_times"')]
+        if len(node_calls) != 1:
+            fail(f"the node exporter printed {len(node_calls)} NVML timing lines")
 
         # ------------------------------------------------------------ checks
         # 1. The flat aggregator.
@@ -2380,6 +2530,8 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
         if (len(card) != 1 or card[0]["hbm_used_bytes"] < FILL_BYTES
                 or os.getpid() not in [h["pid"] for h in card[0]["holders"]]):
             fail(f"status on the node {status}")
+        (CAPTURE_DIR / "h100-metrics.txt").write_bytes(node_filled)
+        (CAPTURE_DIR / "h100-status.json").write_text(status_node.stdout)
 
         # Every tier and both node processes drained: exit 0.
         if any(rc != 0 for rc in exits.values()):
@@ -2406,11 +2558,20 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
     emit("fleet_alert", **alerting)
     emit("fleet_processes", idle=cpu_and_rss("idle", "fill"), load=cpu_and_rss("fill", "release"),
          clock_ticks_per_s=os.sysconf("SC_CLK_TCK"), node_poll_phase_ms=node_poll)
+    (calls,) = node_calls
+    nvml_tids = {tid for times in calls["nvml_call_times"].values() for tid in times["tids"]}
+    waits = {stage: run_queue_wait(usage[a]["node_threads"], usage[b]["node_threads"],
+                                   usage[b]["t"] - usage[a]["t"], sorted(nvml_tids))
+             for stage, a, b in (("idle", "idle", "fill"), ("load", "fill", "release"),
+                                 ("release", "release", "end"))}
     emit_device_read("fleet", {"node": node_poll.get("device_read", {}).get("p99_ms")},
                      polls={"node": node_poll["polls"]},
                      scrape_p99_ms={"node": node_poll["scrape"]["p99_ms"]},
                      scrapes={"node": node_poll["scrape"]["scrapes"]},
-                     device_read_buckets_ms={"node": node_poll["device_read_buckets_ms"]})
+                     device_read_buckets_ms={"node": node_poll["device_read_buckets_ms"]},
+                     nvml_call_times={"node": calls["nvml_call_times"]},
+                     slow_samples={"node": calls["slow_samples"]},
+                     run_queue_wait={"node": waits})
     launches = tm.tanh_matmul.launches
     by_kernel = launch_counts(tm)
     emit("fleet", seconds=time.monotonic() - t_phase, burn_steps=stim.steps,
@@ -2428,9 +2589,10 @@ def run_port(module: str, *args: str, timeout: float = 60, env=None):
                           cwd=REPO, capture_output=True, text=True, timeout=timeout, env=env)
 
 
-def probe_card() -> dict:
-    """The port's NVML probe as a subprocess: it must exit 0."""
-    proc = run_port("probe", "--runtime", "nvml")
+def probe_card(out: Path | None = None) -> dict:
+    """The port's NVML probe as a subprocess, its report also written to
+    ``out``: it must exit 0."""
+    proc = run_port("probe", "--runtime", "nvml", *(("--out", str(out)) if out else ()))
     if proc.returncode != 0:
         raise AssertionError(f"drills: probe --runtime nvml rc={proc.returncode}\n"
                              f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
@@ -2456,7 +2618,7 @@ def phase_drills_probe(dev, uuid: str, hwcheck_probe: dict) -> dict:
     settle()
     idle = probe_card()
     fill = hbm_fill(FILL_BYTES, device=dev)
-    filled = probe_card()
+    filled = probe_card(CAPTURE_DIR / "h100-probe.json")
     del fill
     settle()
     released = probe_card()
@@ -2657,20 +2819,27 @@ def run_drill(tmp: str, name: str, module: str, args: tuple, want_ok: bool,
     record = {"name": name, "rc": proc.returncode, "seconds": seconds,
               "verdict": next((ln.strip() for ln in reversed(proc.stdout.splitlines())
                                if must_print in ln), None)}
+    failures = ""
     if module == "loadgen.scenario" and (state / "state" / "result.json").exists():
         summary = json.loads((state / "state" / "result.json").read_text())
         record["scenarios"] = {n: [r["ok"], r.get("wall_s"), r.get("rss_growth_mb")]
                                for n, r in summary["scenarios"].items()}
+        # A failed scenario's round and problems, last in the error: the end
+        # of the output is what a reader of a failed run sees first.
+        failures = json.dumps({n: [r.get("failed_round"), r.get("problems")]
+                               for n, r in summary["scenarios"].items() if not r["ok"]})
     if memory:
         record["memory"] = {line["memory"]: line for line in map(
             json.loads, (ln for ln in proc.stdout.splitlines() if ln.startswith('{"memory"')))}
     if (proc.returncode == 0) != want_ok or record["verdict"] is None:
         raise AssertionError(f"drills: {name} rc={proc.returncode}, want "
                              f"{'0' if want_ok else 'non-zero'} and {must_print!r}\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}\n"
+                             f"failed scenarios: {failures}")
     if name == "scenario_suite" and not (len(record["scenarios"]) == DRILL_SCENARIOS and all(
             ok for ok, *_ in record["scenarios"].values())):
-        raise AssertionError(f"drills: scenario suite {record['scenarios']}")
+        raise AssertionError(f"drills: scenario suite {record['scenarios']}\n"
+                             f"failed scenarios: {failures}")
     return record
 
 
@@ -3135,8 +3304,9 @@ def run_deployment(image: dict, tmp: Path, extra_args: tuple = (), load=None,
     it. With ``load``: once both serve, start it, wait for the card's
     ``gpu_hbm_used_bytes`` (the series of ``card_nodes``; None: every
     series) to rise by ``fill_bytes`` at the exporter and the pool to rise
-    by as much at the aggregator, stop it, wait for the fall. Then SIGTERM
-    both. Returns what it saw."""
+    by as much at the aggregator (keeping that /metrics body of the
+    aggregator's), stop it, wait for the fall. Then SIGTERM both. Returns
+    what it saw."""
     import threading
 
     pod, node = deploy_container("daemonset.yaml", "DaemonSet", "gpu-pod-exporter")
@@ -3164,14 +3334,16 @@ def run_deployment(image: dict, tmp: Path, extra_args: tuple = (), load=None,
         return [sum(used)] if used and ok(sum(used)) else None
 
     def pool() -> tuple | None:
-        table = rollups(parsed(http_get(f"http://127.0.0.1:{agg_port}/metrics")[1]))
+        seen["aggregator_body"] = http_get(f"http://127.0.0.1:{agg_port}/metrics")[1]
+        table = rollups(parsed(seen["aggregator_body"]))
         used = pick(table, "tpu_slice_hbm_used_bytes", family="gpu")
         chips = pick(table, "tpu_slice_chip_count", family="gpu")
         return (used, chips) if used is not None and chips == len(seen["cards"]) else None
 
     def usage() -> dict:
         cpu, _ = proc_usage(procs["exporter"].pid)
-        return {"t": time.monotonic(), "cpu_s": cpu}
+        return {"t": time.monotonic(), "cpu_s": cpu,
+                "threads": thread_schedstat(procs["exporter"].pid)}
 
     def sample_rss(pid: int) -> None:
         while not sampled.wait(DEPLOY_RSS_EVERY_S):
@@ -3218,6 +3390,7 @@ def run_deployment(image: dict, tmp: Path, extra_args: tuple = (), load=None,
             seen["pool_filled"] = wait_for(
                 lambda: (p := pool()) and p[0] >= seen["pool_idle"][0] + fill_bytes and p,
                 DEPLOY_START_S, "the pool's rise by the fill", phase="deploy")
+            seen["aggregator_filled_body"] = seen["aggregator_body"]
             seen["probes_load"] = {name: http_get(base + path)[0]
                                    for name, path in probes.items()}
             seen["usage"].append(usage())
@@ -3300,6 +3473,7 @@ def phase_deploy(dev, tm, hwcheck) -> dict:
         changed = sorted(k for k, v in tree_state(image["site"]).items() if before.get(k) != v)
         changed += sorted(before.keys() - tree_state(image["site"]).keys())
     cost = check_deployment(seen)
+    (CAPTURE_DIR / "h100-aggregate.txt").write_bytes(seen["aggregator_filled_body"])
     node, agg = seen["exits"]["exporter"], seen["exits"]["aggregator"]
     emit("deploy_exporter", package=seen["started"]["exporter"]["package"],
          native_lib=seen["started"]["exporter"]["native_lib"], rewrites=seen["rewrites"],
@@ -3312,12 +3486,16 @@ def phase_deploy(dev, tm, hwcheck) -> dict:
          rc=node["rc"], drain_s=node["drain_s"],
          grace_s=seen["grace_s"], refused_attempts=node["refused_attempts"],
          refused_loaded=node["refused_loaded"], poll_phase_ms=seen["latency"])
-    latency = seen["latency"]
+    latency, usage = seen["latency"], seen["usage"]
     emit_device_read("deploy", {"daemonset": latency.get("device_read", {}).get("p99_ms")},
                      polls={"daemonset": latency["polls"]},
                      scrape_p99_ms={"daemonset": latency["scrape"]["p99_ms"]},
                      scrapes={"daemonset": latency["scrape"]["scrapes"]},
-                     device_read_buckets_ms={"daemonset": latency["device_read_buckets_ms"]})
+                     device_read_buckets_ms={"daemonset": latency["device_read_buckets_ms"]},
+                     run_queue_wait={"daemonset": {
+                         stage: run_queue_wait(usage[a]["threads"], usage[b]["threads"],
+                                               usage[b]["t"] - usage[a]["t"])
+                         for stage, a, b in (("load", 0, 1), ("release", 1, 2))}})
     emit("deploy_aggregator", command=seen["aggregator_command"],
          rewrites=seen["aggregator_rewrites"],
          pool={"idle": seen["pool_idle"], "filled": seen["pool_filled"]},
@@ -3335,6 +3513,179 @@ def phase_deploy(dev, tm, hwcheck) -> dict:
         raise AssertionError("no tanh_matmul launch during the deploy phase")
     check_all_wgmma(tm, "deploy", launches)
     return by_kernel
+
+
+def probe_spec(report: dict) -> dict:
+    """An NVML probe's report as a simulated-driver spec
+    (``--nvml-sim-spec``): each device's name, UUID, memory, utilization and
+    process rows, and each call that failed as a fault that answers its
+    NVML code on every call a test makes (a field that failed has no value
+    in the spec)."""
+    gpus = []
+    for dev in report["devices"]:
+        gpu = {"name": dev["name"], "uuid": dev["uuid"], "utilization": None,
+               "processes": [[pid, used, ""] for pid, used in dev["processes"]]}
+        for key, field in (("mem_total", "memory_total_bytes"),
+                           ("mem_used", "memory_used_bytes"),
+                           ("utilization", "utilization_percent")):
+            if not isinstance(dev[field], str):  # a failed call's field is its code
+                gpu[key] = dev[field]
+        gpus.append(gpu)
+    faults = [{"call": label.split("(")[0], "code": text.split()[0], "times": 1 << 20}
+              for label, text in sorted(report["errors"].items())]
+    return {"gpus": gpus, "faults": faults}
+
+
+def check_capture(directory: Path) -> dict:
+    """The capture in ``directory`` replayed through the port. Every file of
+    CAPTURES is in the manifest with its phase, size and sha256, under
+    CAPTURE_MAX_BYTES. The recording: one card each frame, of the
+    manifest's name, NVML's memory total within 1 MiB of nvidia-smi's, used
+    memory up by the fill and back within 1 GiB, a process row holding the
+    fill, every frame through a Collector to the same gpu_hbm_used_bytes.
+    The node's /metrics body: the smoke pod at the fill, parsed alike by
+    both parsers, one card of the gpu family at the fill through a
+    SliceAggregator. The aggregator's body: one card at the fill, every
+    target up. The status document: the card at the fill, held by the
+    smoke pod. The probe: the card, its answers replayed through a
+    simulated driver to the same sample. Raises on any difference; returns
+    what it read."""
+    import hashlib
+
+    from tpu_pod_exporter_torch.aggregate import CONSUMED_NAMES, SliceAggregator
+    from tpu_pod_exporter_torch.attribution.fake import FakeAttribution
+    from tpu_pod_exporter_torch.backend.nvml import NvmlBackend, sim_driver_from_spec
+    from tpu_pod_exporter_torch.backend.recorded import RecordedBackend
+    from tpu_pod_exporter_torch.collector import Collector
+    from tpu_pod_exporter_torch.metrics import SnapshotStore
+    from tpu_pod_exporter_torch.metrics.parse import (
+        LayoutCache,
+        parse_exposition,
+        parse_exposition_layout,
+    )
+
+    def need(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"capture: {what}")
+
+    manifest = json.loads((directory / CAPTURE_MANIFEST).read_text())
+    files = manifest["files"]
+    need(sorted(files) == sorted(CAPTURES), f"the manifest lists {sorted(files)}")
+    for name, entry in files.items():
+        data = (directory / name).read_bytes()
+        need(entry == {"phase": CAPTURES[name], "bytes": len(data),
+                       "sha256": hashlib.sha256(data).hexdigest()},
+             f"{name} is not as its manifest entry {entry}")
+        need(len(data) < CAPTURE_MAX_BYTES, f"{name} holds {len(data)} B")
+    name = manifest["card"].split(",")[0]
+    total = int(manifest["memory_total"].split()[0]) << 20
+    probe = json.loads((directory / "h100-probe.json").read_text())
+    need(probe["reachable"] and probe["count"] == 1 and probe["devices"][0]["name"] == name,
+         f"the probe {probe}")
+    (card,) = probe["devices"]
+    node = f"/dev/nvidia{card['minor']}"
+
+    # The recording, frame by frame, and through a Collector.
+    trace = str(directory / "h100-trace.jsonl")
+    frames = RecordedBackend(trace, loop=False)
+    samples = [frames.sample() for _ in range(len(frames))]
+    chips = [c for s in samples for c in s.chips]
+    need(frames.family == "gpu" and len(chips) == len(samples)
+         and {(c.info.family, c.info.device_kind, c.info.device_path) for c in chips}
+         == {("gpu", name, node)}, f"the recording's cards {chips[:1]}")
+    need(all(abs(c.hbm_total_bytes - total) <= 1 << 20 for c in chips),
+         f"NVML's total {chips[0].hbm_total_bytes} B, nvidia-smi's {manifest['memory_total']}")
+    used = [c.hbm_used_bytes for c in chips]
+    need(max(used) - used[0] >= FILL_BYTES and abs(used[-1] - used[0]) <= 1 << 30,
+         f"the recorded used memory {used}")
+    need(max(p.used_bytes or 0.0 for c in chips for p in c.processes) >= FILL_BYTES,
+         "no recorded process row holds the fill")
+    store = SnapshotStore()
+    collector = Collector(RecordedBackend(trace, loop=False), FakeAttribution(), store)
+    served = []
+    for _ in samples:
+        collector.poll_once()
+        served += [s.value for s in parse_exposition(store.current().encode().decode())
+                   if s.name == "gpu_hbm_used_bytes"]
+    need(served == used, "the Collector served other gpu_hbm_used_bytes than recorded")
+
+    # The node's /metrics body and the deployed aggregator's.
+    body = (directory / "h100-metrics.txt").read_text()
+    pod = [s.value for s in parse_exposition(body)
+           if s.name == "gpu_pod_memory_used_bytes" and s.labels.get("pod") == SMOKE_POD]
+    need(pod and pod[0] >= FILL_BYTES, f"the node's body holds pod {SMOKE_POD} at {pod}")
+    layout = LayoutCache()
+    for _ in ("cold", "warm"):
+        need([tuple(s) for s in parse_exposition_layout(body, CONSUMED_NAMES, layout)]
+             == [tuple(s) for s in parse_exposition(body, CONSUMED_NAMES)],
+             "the layout parser and the plain one differ on the node's body")
+    agg_store = SnapshotStore()
+    agg = SliceAggregator(("node:8000",), agg_store, fetch=lambda target, timeout_s: body)
+    agg.poll_once()
+    agg.close()
+    folded = rollups(parsed(agg_store.current().encode()))
+    aggregate = rollups(parsed((directory / "h100-aggregate.txt").read_bytes()),
+                        ("tpu_slice_", "tpu_aggregator_target_up"))
+    for who, table in (("the node's body folded", folded), ("the aggregator's body", aggregate)):
+        need(pick(table, "tpu_slice_chip_count", family="gpu") == 1.0
+             and pick(table, "tpu_slice_hbm_used_bytes", family="gpu") >= FILL_BYTES,
+             f"{who}: {table}")
+    up = [v for (n, _), v in aggregate.items() if n == "tpu_aggregator_target_up"]
+    need(up and set(up) == {1.0}, f"the aggregator's targets up {up}")
+
+    # The status document on the node.
+    status = json.loads((directory / "h100-status.json").read_text())
+    need([(c["device_kind"], c["device_path"], c["pod"]) for c in status["chips"]]
+         == [(name, node, SMOKE_POD)] and status["chips"][0]["hbm_used_bytes"] >= FILL_BYTES,
+         f"status on the node {status['chips']}")
+
+    # The probe's answers through a simulated driver.
+    (chip,) = NvmlBackend(driver=sim_driver_from_spec(probe_spec(probe))).sample().chips
+    need((chip.info.device_kind, chip.info.device_ids[0], chip.hbm_used_bytes,
+          chip.hbm_total_bytes)
+         == (name, card["uuid"], card["memory_used_bytes"], card["memory_total_bytes"]),
+         f"the probe's answers replayed as {chip}")
+    return {"frames": len(samples), "used_bytes": {"first": used[0], "max": max(used),
+                                                   "last": used[-1]},
+            "device_path": node, "total_bytes": chips[0].hbm_total_bytes,
+            "utilization": sorted({c.tensorcore_duty_cycle_percent for c in chips},
+                                  key=lambda v: (v is None, v or 0.0)),
+            "partial_errors": sorted({e for s in samples for e in s.partial_errors}),
+            "probe_errors": probe["errors"], "node_pod_bytes": pod[0],
+            "status_used_bytes": status["chips"][0]["hbm_used_bytes"]}
+
+
+def phase_capture(kind: str) -> dict:
+    """Phase 18: the manifest of what the phases captured, then the capture
+    replayed through the port (``check_capture``) and its replay demos."""
+    import datetime
+    import hashlib
+
+    t_phase = time.monotonic()
+    files = {}
+    for name, phase in CAPTURES.items():
+        data = (CAPTURE_DIR / name).read_bytes()
+        files[name] = {"phase": phase, "bytes": len(data),
+                       "sha256": hashlib.sha256(data).hexdigest()}
+    manifest = {"card": card_line(), "device": kind,
+                "driver_version": nvidia_smi("driver_version"),
+                "memory_total": nvidia_smi("memory.total"), "torch": torch.__version__,
+                "cuda": torch.version.cuda,
+                "utc": datetime.datetime.now(datetime.timezone.utc).isoformat(),
+                "files": files}
+    (CAPTURE_DIR / CAPTURE_MANIFEST).write_text(json.dumps(manifest, indent=1) + "\n")
+    replayed = check_capture(CAPTURE_DIR)
+    trace = str(CAPTURE_DIR / "h100-trace.jsonl")
+    demos = {"trace": run_port("trace", "--replay", trace),
+             "history": run_port("history", "--replay", trace)}
+    for demo, proc in demos.items():
+        if proc.returncode != 0 or (demo == "trace" and not (
+                "device_read" in proc.stdout and "publish" in proc.stdout)):
+            raise AssertionError(f"capture: {demo} --replay rc={proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    emit("capture", seconds=time.monotonic() - t_phase, manifest=manifest,
+         replayed=replayed, demos={demo: proc.returncode for demo, proc in demos.items()})
+    return manifest
 
 
 def main() -> int:
@@ -3361,6 +3712,8 @@ def main() -> int:
     uuid = nvidia_smi("uuid")
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          uuid=uuid, torch=torch.__version__, cuda=torch.version.cuda)
+    shutil.rmtree(CAPTURE_DIR, ignore_errors=True)  # the recording appends
+    CAPTURE_DIR.mkdir(parents=True)
 
     t0 = time.monotonic()
     path, log = tm.build()
@@ -3397,6 +3750,7 @@ def main() -> int:
     phase_drills(dev, uuid, hwcheck_probe)
     lint = phase_lint(uuid)
     deploy = phase_deploy(dev, tm, hwcheck)
+    phase_capture(kind)
 
     # Launches on the main paths: the closed loop, the training run, the
     # collective programs, the NVML closed loop, the node state phase, the

@@ -759,6 +759,86 @@ class TestShipperSending:
         assert oks == [1, 2, 3, 4, 5]
 
 
+class TestDiskPressureSeal:
+    """The egress_compact rung seals the active segment on the writer
+    thread: a seal from the governor's thread in the middle of an append
+    closed the file under the write (the batch lost after its seq was
+    issued) or indexed the record into the next segment."""
+
+    def test_seal_waits_for_the_append_in_flight(self, tmp_path, monkeypatch):
+        import threading
+
+        import tpu_pod_exporter_torch.persist as persist
+
+        real = persist.append_record
+        armed, mid, go = threading.Event(), threading.Event(), threading.Event()
+
+        def paused(f, payload):
+            # The header lands, then an armed writer stops inside the record.
+            f.write(persist._HDR.pack(len(payload), persist.zlib.crc32(payload)))
+            if armed.is_set() and not mid.is_set():
+                mid.set()
+                go.wait(5.0)
+            f.write(payload)
+            return persist._HDR.size + len(payload)
+
+        monkeypatch.setattr(persist, "append_record", paused)
+        sh = make_shipper(tmp_path, CollectingSend(fail_until=10**9))
+        sh.start()
+        try:
+            # A record already in the active segment: there is one to seal.
+            assert sh.on_snapshot(up_snap(100.0)) == 1
+            assert wait_for(lambda: sh.buffer.pending() == 1, timeout=5)
+            armed.set()
+            assert sh.on_snapshot(up_snap(101.0, up=2.0)) == 1
+            assert mid.wait(5.0)
+            shed = threading.Thread(target=sh.set_disk_pressure, args=(True,))
+            shed.start()
+            shed.join(5.0)
+            assert not shed.is_alive()
+            go.set()
+            assert sh.on_snapshot(up_snap(102.0, up=3.0)) == 1
+            assert wait_for(lambda: sh.buffer.pending() == 3, timeout=5)
+            seqs = [parse_batch(sh.buffer.peek_at(i))[0]["seq"] for i in range(3)]
+            assert seqs == [1, 2, 3]
+            assert sh.stats()["enqueued_batches"] == 3
+        finally:
+            go.set()
+            sh.close()
+        monkeypatch.setattr(persist, "append_record", real)
+        # Every record reads back from disk after a restart.
+        again = WalBuffer(str(tmp_path))
+        assert again.open()["pending"] == 3
+        assert [parse_batch(p)[0]["seq"] for p in again.iter_payloads()] == [1, 2, 3]
+        again.close()
+
+    def test_seal_reclaims_acked_bytes_on_an_idle_writer(self, tmp_path):
+        send = CollectingSend()
+        sh = make_shipper(tmp_path, send)
+        sh.start()
+        try:
+            for i in range(3):
+                sh.on_snapshot(up_snap(100.0 + i, up=float(i)))
+            assert wait_for(lambda: len(send.calls) == 3
+                            and sh.buffer.pending() == 0)
+            assert egress_dir_summary(str(tmp_path))["segment_bytes"] > 0
+            sh.set_disk_pressure(True)
+            # The writer is idle on its queue: the seal runs at once.
+            assert wait_for(lambda: egress_dir_summary(
+                str(tmp_path))["segment_bytes"] == 0, timeout=2)
+        finally:
+            sh.close()
+
+    def test_seal_before_start_runs_in_place(self, tmp_path):
+        sh = make_shipper(tmp_path, CollectingSend())
+        sh._write_snapshot(up_snap(100.0))
+        sh.buffer.ack()
+        assert egress_dir_summary(str(tmp_path))["segment_bytes"] > 0
+        sh.set_disk_pressure(True)
+        assert egress_dir_summary(str(tmp_path))["segment_bytes"] == 0
+        sh.close()
+
+
 class TestShipperEndToEnd:
     def test_chaos_receiver_flap_exactly_once(self, tmp_path):
         recv = ChaosReceiver(

@@ -3,7 +3,9 @@
 The port's own exporters make the scrape bodies: two hosts of eight
 simulated NVML cards in one pool (one card's memory rises by 20 GiB in the
 middle rounds) beside a fake TPU host, a mixed fleet; and the recorded
-real TPU body ``tests/fixtures/real-metrics-r5.txt``. The same bodies go
+real TPU body ``tests/fixtures/real-metrics-r5.txt`` and the H100's
+``tests/fixtures/h100-metrics.txt`` (the port's node exporter on the card
+under a 16 GiB fill, as ``chip_smoke.py`` captured it). The same bodies go
 through both packages' flat aggregators (an injected fetch, and a
 ``ReplayFetch`` of one recorded round file) and through both packages'
 leaf -> root trees, whose roots keep a ``FleetStore`` under one recording
@@ -48,6 +50,7 @@ GIB = 1 << 30
 ROUNDS = 6
 BASE_WALL = 1_700_000_000.0
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "real-metrics-r5.txt"
+H100_FIXTURE = FIXTURE.parent / "h100-metrics.txt"
 
 # Families whose values time a round or measure this process: round and
 # scrape durations, round timestamps, leaf staleness, CPU and RSS.
@@ -119,8 +122,8 @@ def mixed_rounds() -> list:
     return rounds
 
 
-def _fixture_rounds() -> list:
-    return [{"h0:8000": FIXTURE.read_text()}] * 2
+def _fixture_rounds(path: Path = FIXTURE) -> list:
+    return [{"h0:8000": path.read_text()}] * 2
 
 
 def _split(line: str) -> tuple:
@@ -175,9 +178,10 @@ def flat_bodies(pkg: dict, rounds: list, replay_path: str | None = None) -> list
 
 
 class TestFlatAggregator:
-    @pytest.mark.parametrize("source", ["mixed", "fixture"])
+    @pytest.mark.parametrize("source", ["mixed", "fixture", "h100"])
     def test_same_bodies_same_exposition(self, mixed_rounds, source):
-        rounds = mixed_rounds if source == "mixed" else _fixture_rounds()
+        rounds = {"mixed": lambda: mixed_rounds, "fixture": _fixture_rounds,
+                  "h100": lambda: _fixture_rounds(H100_FIXTURE)}[source]()
         jax_bodies = flat_bodies(PACKAGES["jax"], rounds)
         port_bodies = flat_bodies(PACKAGES["port"], rounds)
         for jb, pb in zip(jax_bodies, port_bodies):
@@ -187,6 +191,8 @@ class TestFlatAggregator:
             assert 'family="gpu"' in last and 'family="tpu"' in last
             assert ('tpu_fleet_family_chip_count{family="gpu"} 16' in last
                     and 'tpu_fleet_family_chip_count{family="tpu"} 4' in last)
+        if source == "h100":
+            assert 'tpu_fleet_family_chip_count{family="gpu"} 1' in port_bodies[-1]
 
     def test_replay_of_one_recorded_round_file(self, mixed_rounds, tmp_path):
         path = tmp_path / "rounds.jsonl"
@@ -310,6 +316,18 @@ class TestShardTree:
                           if ln.startswith(("tpu_slice_", "tpu_fleet_family_")))
 
         assert rollups(flat) and rollups(flat) == rollups(bodies["port"][-1])
+
+    def test_h100_body_through_both_trees(self, tmp_path):
+        rounds = _fixture_rounds(H100_FIXTURE)
+        built = {name: Tree(pkg, rounds, tmp_path / name) for name, pkg in PACKAGES.items()}
+        try:
+            bodies = {name: tree.run() for name, tree in built.items()}
+        finally:
+            for tree in built.values():
+                tree.close()
+        for jb, pb in zip(bodies["jax"], bodies["port"]):
+            assert assert_same_exposition(jb, pb) > 0
+        assert 'tpu_fleet_family_chip_count{family="gpu"} 1' in bodies["port"][-1]
 
 
 class TestStoreAndAlerts:

@@ -31,7 +31,7 @@ VERBATIM = (
     "backend/__init__.py", "backend/fake.py", "backend/recorded.py",
     "backend/proto/__init__.py", "backend/proto/tpu_metric_service_pb2.py",
     "chaos.py", "collector.py",
-    "egress.py", "fuzz.py", "history.py",
+    "fuzz.py", "history.py",
     "metrics/__init__.py", "metrics/native.py", "metrics/parse.py",
     "metrics/schema.py", "shard.py",
     "supervisor.py", "topology.py", "utils.py", "version.py",
@@ -63,7 +63,12 @@ EDITED = {
     # sample() reads the card's device nodes, not the tunnel's ports.
     "tunnelwatch.py": (28, 31),
     # TorchStimulus in place of the JAX burn; the NVML probe in the artifact.
-    "hwcheck.py": (112, 161),
+    "hwcheck.py": (107, 160),
+    # The disk-pressure rung's segment seal runs on the writer thread (the
+    # reference seals from the governor's thread, racing an append in
+    # flight: a batch lost after its seq was issued, or indexed into a
+    # segment that never holds it).
+    "egress.py": (2, 27),
     # Comments: no history reference.
     "scenario.py": (3, 3),
     # Docstring: no history reference; store_continuity's hole allowance
@@ -87,8 +92,10 @@ EDITED = {
     "trace.py": (1, 1),             # docstring: no history reference
     "server.py": (3, 3),            # docstring and comment: no history reference
     # --process-metrics scans /dev/nvidia<minor> for a GPU backend, as app.py
-    # does (the reference walks /dev/accel and /dev/vfio whatever the backend).
-    "status.py": (1, 11),
+    # does (the reference walks /dev/accel and /dev/vfio whatever the backend);
+    # the node's pods are joined under the GPU resource name for a GPU backend
+    # (the reference joins under the TPU resource name whatever the backend).
+    "status.py": (2, 16),
     # Docstrings: no history reference.
     "stream.py": (1, 1),
     "fleet.py": (1, 1),

@@ -3,9 +3,12 @@
 The committed GPU recording replays to equal samples through both
 packages' ``RecordedBackend``, both ``run_gpu_demo``s come out green, and
 ``--record-to`` writes a recording that both packages replay to the
-samples the live backend served.
+samples the live backend served. The H100's own recording
+(``tests/fixtures/h100-trace.jsonl``, phase 12 of ``chip_smoke.py``)
+replays equal too, and both demos judge it alike.
 """
 
+import ast
 import json
 
 from test_torch_nvml import SPEC, plain
@@ -17,6 +20,7 @@ from tpu_pod_exporter_torch.backend.recorded import RecordedBackend, RecordingBa
 from tpu_pod_exporter_torch.config import ExporterConfig
 
 FIXTURE = "tests/fixtures/gpu-recorded.jsonl"
+H100_FIXTURE = "tests/fixtures/h100-trace.jsonl"
 
 
 def test_gpu_fixture_replays_equal():
@@ -32,6 +36,33 @@ def test_gpu_fixture_replays_equal():
 def test_both_gpu_demos_green():
     assert jax_run_gpu_demo(FIXTURE, verbose=False) == 0
     assert nvml.run_gpu_demo(FIXTURE, verbose=False) == 0
+
+
+def test_h100_recording_replays_equal():
+    backends = [jax_recorded.RecordedBackend(H100_FIXTURE, loop=False),
+                RecordedBackend(H100_FIXTURE, loop=False)]
+    assert len(backends[1]) == len(backends[0]) >= 40
+    assert backends[1].family == backends[0].family == "gpu"
+    for _ in range(len(backends[0]) + 1):  # the last frame holds
+        want, got = (b.sample() for b in backends)
+        assert plain(got) == plain(want)
+
+
+def test_both_gpu_demos_on_the_h100_recording(capsys):
+    """``run_gpu_demo`` also requires the simulated fixture's injected NVML
+    fault to replay as a device_partial poll. The card served no partial
+    error, so on its one-card recording both demos fail that check alone,
+    with the same report; every other check (each gpu_* family, the pod's
+    memory joined to the card's, gpu_backend_up) holds."""
+    reports = []
+    for demo in (jax_run_gpu_demo, nvml.run_gpu_demo):
+        assert demo(H100_FIXTURE, verbose=True) == 1
+        reports.append(capsys.readouterr().out)
+    assert reports[1] == reports[0]
+    head, _, problems = reports[1].strip().partition(": ")
+    assert head == "gpu-demo FAILED"
+    assert ast.literal_eval(problems) == [
+        "no device_partial observed — the recorded NVML fault did not replay"]
 
 
 def test_link_order_is_numeric_first(tmp_path):

@@ -408,6 +408,8 @@ def default_send(url: str, body: bytes, headers: Mapping[str, str],
 # Always included in delta batches (fresh timestamp every batch): the
 # liveness series a receiving TSDB alerts on.
 _HEARTBEAT_METRICS = ("tpu_exporter_up", "tpu_aggregator_target_up")
+# Queued to wake the writer for a seal request; never framed.
+_SEAL = object()
 
 
 def build_breaker(failures: int, backoff_s: float,
@@ -503,6 +505,7 @@ class RemoteWriteShipper:
         )
         self._q: "queue.Queue[Any]" = queue.Queue(maxsize=queue_max)
         self._work = threading.Event()     # sender wake-up on append
+        self._seal_wanted = threading.Event()  # seal_active, on the writer
         self._stop = threading.Event()
         self._writer: threading.Thread | None = None
         self._sender: threading.Thread | None = None
@@ -661,8 +664,13 @@ class RemoteWriteShipper:
             try:
                 snap = self._q.get(timeout=0.25)
             except queue.Empty:
-                continue
+                snap = None
             try:
+                if self._seal_wanted.is_set():
+                    self._seal_wanted.clear()
+                    self.buffer.seal_active()
+                if snap is None or snap is _SEAL:
+                    continue
                 self._write_snapshot(snap)
             except Exception as e:  # noqa: BLE001 — egress must survive anything
                 self._rlog.warning("egress_write", "egress batch build "
@@ -1030,8 +1038,25 @@ class RemoteWriteShipper:
             # producer stalled, the lazily-rotated active segment can be
             # 100% acked yet hold the disk over budget forever (the
             # fuzzer's one-round disk_full find).
-            self.buffer.seal_active()
+            self._request_seal()
         self._work.set()  # wake the sender so the cap applies promptly
+
+    def _request_seal(self) -> None:
+        """Seal the buffer's active segment on the writer thread, the
+        segment's one writer. Sealing from the caller's thread races an
+        append in flight: it can close the file under the write (the batch
+        is lost after its seq was issued) or bump the segment between the
+        write and its index entry (the entry points into a file that never
+        holds it, and the sender stalls on it). Before start() there is no
+        writer, and the seal runs here."""
+        if self._writer is None:
+            self.buffer.seal_active()
+            return
+        self._seal_wanted.set()
+        try:
+            self._q.put_nowait(_SEAL)  # wake an idle writer now
+        except queue.Full:
+            pass  # a busy writer checks the flag before its next batch
 
     def set_pressure_hook(self, hook: Callable[[BaseException], bool]) -> None:
         """Governor callback for buffer-append failures (ENOSPC sheds the

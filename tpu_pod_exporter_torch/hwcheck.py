@@ -111,7 +111,11 @@ class FakeStimulus:
     """Flips the fake backend's script values — tests the orchestration."""
 
     def __init__(self, backend):
-        self._scripts = backend._scripts
+        # --record-to wraps the backend in a RecordingBackend; unwrap.
+        scripts = getattr(backend, "_scripts", None)
+        if scripts is None:
+            scripts = backend._inner._scripts
+        self._scripts = scripts
 
     def start(self) -> None:
         for s in self._scripts:

@@ -933,7 +933,11 @@ def _run(cfg, topo, backend, attribution, scanner=None, as_json=False,
     for err in sample.partial_errors:
         print(f"warning: {err}", file=sys.stderr)
     try:
-        owner_map = attribution.snapshot().by_device_id(cfg.resource_name)
+        # The resource the provider was built for: nvidia.com/gpu device
+        # UUIDs for a GPU-family backend, as ExporterApp joins them.
+        owner_map = attribution.snapshot().by_device_id(
+            cfg.gpu_resource_name if getattr(backend, "family", "tpu") == "gpu"
+            else cfg.resource_name)
     except AttributionError as e:
         print(f"(attribution unavailable: {e})", file=sys.stderr)
         owner_map = {}
