@@ -84,7 +84,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                loaded through ctypes.CDLL and ctypes.PyDLL in turns, 200
                samples each, idle and under the burn, alone and beside one
                thread that runs Python: each symbol's and the whole
-               sample's median and p99.
+               sample's median and p99; and the card's process table read
+               both ways in turns, the order alternating each round (the
+               pair: a sizing call with no table, then the table; the
+               binding's single call), 200 rounds idle and under the burn,
+               alone and beside the Python thread: each way's median, p99
+               and max ms and its NVML calls.
 13. node      — the node's native fast path and durable state under the
     state       16 GiB fill and the full-size burn: nativelib.load() gives the
                libtpumon just built from the port's native/tpumon.cc; the live
@@ -124,7 +129,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                beside the 10 ms limit and scrape p99, each NVML call's and
                each sample's wall and CPU ms inside that exporter (it runs
                under NVML_TIMING_BOOTSTRAP; the samples over the limit with
-               their calls) and its threads' run-queue waits from
+               their calls; the process-table calls a sample, which must be
+               one beside those NVML answered with a grown table) and its
+               threads' run-queue waits from
                /proc/<pid>/task/*/schedstat, idle, under load and after.
 15. drills    — the NVML probe (``probe --runtime nvml``) on the card: one
                device, nvidia-smi's UUID, the minor of the node this
@@ -568,23 +575,30 @@ finally:
 # interpreter lock or sleeps in a futex). At exit it prints one JSON line:
 # per symbol the calls, median, p99 and largest of each, and the native ids
 # of the calling threads; and each sample over the device-read limit with
-# the calls made inside it.
+# the calls made inside it; and how many samples made how many process-table
+# calls, and how many of those had room for rows and were answered that the
+# table grew past it (a sizing call, with no room, is not one of them).
 NVML_TIMING_BOOTSTRAP = """
-import atexit, json, math, runpy, sys, threading, time
+import atexit, collections, json, math, runpy, sys, threading, time
 from tpu_pod_exporter_torch.backend import nvml, nvml_ctypes
 
 LIMIT_MS = %r
 calls, slow, local = {}, [], threading.local()
+tables = collections.Counter()  # (table calls, grown) -> samples
 
 
 def timed(name, fn):
     def call(*args):
         inside = getattr(local, "inside", None)
         if name == "sample":
-            local.inside = []
+            local.inside, local.tables = [], [0, 0]
+        table = name.startswith("nvmlDeviceGetComputeRunningProcesses")
+        room = args[1].value if table else 0
         t0, c0 = time.perf_counter(), time.thread_time()
+        ret = None
         try:
-            return fn(*args)
+            ret = fn(*args)
+            return ret
         finally:
             wall = (time.perf_counter() - t0) * 1e3
             cpu = (time.thread_time() - c0) * 1e3
@@ -592,9 +606,13 @@ def timed(name, fn):
             if name == "sample":
                 if wall > LIMIT_MS:
                     slow.append({"wall_ms": wall, "cpu_ms": cpu, "calls": local.inside})
+                tables[tuple(local.tables)] += 1
                 local.inside = None
             elif inside is not None:
                 inside.append([name, wall, cpu])
+                if table:
+                    local.tables[0] += 1
+                    local.tables[1] += room > 0 and ret == nvml_ctypes.NVML_ERROR_INSUFFICIENT_SIZE
     return call
 
 
@@ -618,7 +636,10 @@ def report():
         name: {"calls": len(rows), "wall_ms": quantiles([r[0] for r in rows]),
                "cpu_ms": quantiles([r[1] for r in rows]),
                "tids": sorted({r[2] for r in rows})}
-        for name, rows in calls.items()}, "slow_samples": slow}), flush=True)
+        for name, rows in calls.items()}, "slow_samples": slow,
+        "process_table_calls": [[n, grown, samples]
+                                for (n, grown), samples in sorted(tables.items())]}),
+        flush=True)
 
 
 nvml_ctypes.CtypesNvmlDriver.__init__ = timed_init
@@ -1314,6 +1335,32 @@ def sample_ms(backend, calls: int = NVML_SAMPLES) -> dict:
     return quantiles_ms(sample.ms)
 
 
+class BusyPython:
+    """With ``on``, one thread that runs Python for as long as the block."""
+
+    def __init__(self, on: bool) -> None:
+        import threading
+
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.spin, name="busy-python", daemon=True)
+        self.on = on
+
+    def spin(self) -> None:
+        x = 0
+        while not self.stop.is_set():
+            x += 1
+
+    def __enter__(self):
+        if self.on:
+            self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop.set()
+        if self.on:
+            self.thread.join(timeout=10)
+
+
 def nvml_call_times(beside_python: bool, calls: int = NVML_SAMPLES) -> dict:
     """Each NVML call of ``NvmlBackend.sample()``, timed through the port's
     ctypes binding with its library loaded by each of NVML_LOADERS: the
@@ -1323,7 +1370,6 @@ def nvml_call_times(beside_python: bool, calls: int = NVML_SAMPLES) -> dict:
     time is wall time from the call to its return to Python, the wait for
     the interpreter lock included."""
     import ctypes
-    import threading
 
     from tpu_pod_exporter_torch.backend import nvml_ctypes
     from tpu_pod_exporter_torch.backend.nvml import NvmlBackend
@@ -1342,28 +1388,74 @@ def nvml_call_times(beside_python: bool, calls: int = NVML_SAMPLES) -> dict:
         for timer in timers[loader].values():
             timer.ms.clear()
         backends[loader] = backend
-    stop = threading.Event()
-
-    def spin() -> None:
-        x = 0
-        while not stop.is_set():
-            x += 1
-
-    spinner = threading.Thread(target=spin, name="busy-python", daemon=True)
-    if beside_python:
-        spinner.start()
     try:
-        for _ in range(calls):
-            for by_name in timers.values():
-                by_name["sample"]()
+        with BusyPython(beside_python):
+            for _ in range(calls):
+                for by_name in timers.values():
+                    by_name["sample"]()
     finally:
-        stop.set()
-        if beside_python:
-            spinner.join(timeout=10)
         for backend in backends.values():
             backend.close()
     return {loader: {name: quantiles_ms(t.ms) for name, t in by_name.items() if t.ms}
             for loader, by_name in timers.items()}
+
+
+def process_table_times(uuid: str, beside_python: bool, rounds: int = NVML_SAMPLES) -> dict:
+    """The process table of the card ``uuid`` read both ways through the
+    port's binding, in turns, the order alternating each round: "pair", the
+    sizing call with no table and then a table of the reported size plus
+    PROCESS_TABLE_SLACK (the two calls pynvml makes); "single", the
+    binding's own read, one call where the table fits. With
+    ``beside_python``, beside one thread that runs Python throughout.
+    Returns each way's median, p99 and max wall ms, its NVML calls and the
+    pids of its last read; raises if the two ways read different pids."""
+    import ctypes
+
+    from tpu_pod_exporter_torch.backend import nvml_ctypes
+
+    driver = nvml_ctypes.CtypesNvmlDriver()
+    driver.nvmlInit()
+    try:
+        handle = next(h for h in map(driver.nvmlDeviceGetHandleByIndex,
+                                     range(driver.nvmlDeviceGetCount()))
+                      if driver.nvmlDeviceGetUUID(h) == uuid)
+        procs = driver._procs = _Timed(driver._procs)
+
+        def pair() -> list:
+            count = ctypes.c_uint(0)
+            ret = procs(handle, count, None)
+            table = (nvml_ctypes.NvmlProcessInfo * 0)()
+            if ret == nvml_ctypes.NVML_ERROR_INSUFFICIENT_SIZE:
+                table = (nvml_ctypes.NvmlProcessInfo
+                         * (count.value + nvml_ctypes.PROCESS_TABLE_SLACK))()
+                count = ctypes.c_uint(len(table))
+                ret = procs(handle, count, table)
+            nvml_ctypes._check(ret)
+            return sorted(row.pid for row in table[:count.value])
+
+        def single() -> list:
+            return sorted(row["pid"] for row in driver.nvmlDeviceGetComputeRunningProcesses(handle))
+
+        ways = {"pair": pair, "single": single}
+        wall = {name: [] for name in ways}
+        calls = dict.fromkeys(ways, 0)
+        pids = {}
+        driver.nvmlDeviceGetComputeRunningProcesses(handle)  # sizes the single read
+        with BusyPython(beside_python):
+            for i in range(rounds):
+                for name in (list(ways) if i % 2 == 0 else list(ways)[::-1]):
+                    before = len(procs.ms)
+                    t0 = time.perf_counter()
+                    pids[name] = ways[name]()
+                    wall[name].append((time.perf_counter() - t0) * 1e3)
+                    calls[name] += len(procs.ms) - before
+    finally:
+        driver.nvmlShutdown()
+    if pids["pair"] != pids["single"]:
+        raise AssertionError(f"the process table's pair read pids {pids['pair']}, "
+                             f"its single call {pids['single']}")
+    return {name: {**quantiles_ms(wall[name]), "max": max(wall[name]),
+                   "nvml_calls": calls[name], "pids": pids[name]} for name in ways}
 
 
 def kubelet_fixture(tmp: str, uuid: str) -> dict:
@@ -1470,6 +1562,8 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
     idle_sample = backend.sample().chips
     idle_ms = sample_ms(backend)
     calls = {"idle": nvml_call_times(False), "idle_beside_python": nvml_call_times(True)}
+    tables = {"idle": process_table_times(torch_uuid, False),
+              "idle_beside_python": process_table_times(torch_uuid, True)}
     stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
                                  batch=BATCH, iters=ITERS, device=dev)
     stim.start()
@@ -1480,11 +1574,13 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
         allocated, reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
         calls["burn"] = nvml_call_times(False)
         calls["burn_beside_python"] = nvml_call_times(True)
+        tables["burn"] = process_table_times(torch_uuid, False)
+        tables["burn_beside_python"] = process_table_times(torch_uuid, True)
     finally:
         stim.stop()
         backend.close()
     emit("nvml_calls", samples=NVML_SAMPLES, loaders=list(NVML_LOADERS),
-         runs=calls, card=card_line())
+         runs=calls, process_table=tables, card=card_line())
     (idle_chip,) = [c for c in idle_sample if c.info.device_ids[0] == torch_uuid]
     emit("nvml_numbers", sample_ms_idle=idle_ms, sample_ms_burn=burn_ms,
          poll_phase_last_ms={phase: report["phases"][phase]["poll_phase_last_ms"]
@@ -2559,6 +2655,10 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
     emit("fleet_processes", idle=cpu_and_rss("idle", "fill"), load=cpu_and_rss("fill", "release"),
          clock_ticks_per_s=os.sysconf("SC_CLK_TCK"), node_poll_phase_ms=node_poll)
     (calls,) = node_calls
+    # [process-table calls, of them answered with a grown table, samples]
+    tables = calls["process_table_calls"]
+    table_calls = sum(n * k for n, _, k in tables)
+    samples = sum(k for _, _, k in tables)
     nvml_tids = {tid for times in calls["nvml_call_times"].values() for tid in times["tids"]}
     waits = {stage: run_queue_wait(usage[a]["node_threads"], usage[b]["node_threads"],
                                    usage[b]["t"] - usage[a]["t"], sorted(nvml_tids))
@@ -2571,7 +2671,12 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
                      device_read_buckets_ms={"node": node_poll["device_read_buckets_ms"]},
                      nvml_call_times={"node": calls["nvml_call_times"]},
                      slow_samples={"node": calls["slow_samples"]},
+                     process_table_calls={"node": tables},
+                     process_table_calls_per_sample={"node": table_calls / max(1, samples)},
                      run_queue_wait={"node": waits})
+    if any(n - grown > 1 for n, grown, _ in tables) or not any(n == 1 for n, _, _ in tables):
+        raise AssertionError("the node's samples made more than one process-table call "
+                             f"beside those NVML answered with a grown table: {tables}")
     launches = tm.tanh_matmul.launches
     by_kernel = launch_counts(tm)
     emit("fleet", seconds=time.monotonic() - t_phase, burn_steps=stim.steps,

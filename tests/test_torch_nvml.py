@@ -5,13 +5,15 @@ One simulated-driver spec (with injected NVML codes) goes through both
 packages' ``NvmlBackend`` and both ``ExporterApp``s: equal samples, and the
 same /metrics lines outside the timing and process self-metrics. The
 ctypes driver is driven by an object that fills the NVML structs the way
-the library does, so the sizing call, the NOT_AVAILABLE sentinel, the byte
-strings and the return codes are checked without a driver.
+the library does, so the process table's sizing, the NOT_AVAILABLE
+sentinel, the byte strings and the return codes are checked without a
+driver.
 """
 
 import ctypes
 import dataclasses
 import json
+import threading
 
 import pytest
 
@@ -32,6 +34,7 @@ from tpu_pod_exporter_torch.backend.nvml_ctypes import CtypesNvmlDriver
 from tpu_pod_exporter_torch.config import ExporterConfig
 
 GIB = 1024**3
+WAIT_S = 10.0
 SPEC = {
     "gpus": [
         {"mem_total": 80 * GIB, "mem_used": 21 * GIB, "utilization": 87,
@@ -200,24 +203,135 @@ class TestCtypesDriver:
         assert drv.process_symbol == "nvmlDeviceGetComputeRunningProcesses_v3"
 
     @pytest.mark.parametrize("procs,growth,sizes", [
-        ([], (), [0]),                                   # empty: one call
-        ([(1, GIB), (2, 2 * GIB), (3, 3 * GIB)], (), [0, 3 + 8]),
-        ([(1, GIB)], (5,), [0, 1 + 8]),                  # grew inside the slack
-        ([(1, GIB)], (12,), [0, 1 + 8, 13 + 8]),         # grew past it
+        ([], (), [8, 0 + 8]),                            # empty: one call a sample
+        ([(1, GIB), (2, 2 * GIB), (3, 3 * GIB)], (), [8, 3 + 8]),
+        ([(1, GIB)], (5,), [8, 1 + 8]),                  # grew inside the slack
+        ([(1, GIB)], (12,), [8, 1 + 8, 13 + 8]),         # grew past it
     ])
     def test_process_table_sizing_call(self, procs, growth, sizes):
+        # Two reads of one handle: the first has room for the slack, the
+        # second for the first's rows plus the slack, and calls again only
+        # where the table grew past that in between.
         lib = FakeNvmlLib(procs=procs, growth=growth)
-        rows = CtypesNvmlDriver(lib=lib).nvmlDeviceGetComputeRunningProcesses(0x1000)
+        drv = CtypesNvmlDriver(lib=lib)
+        before = list(lib.procs)
+        first = drv.nvmlDeviceGetComputeRunningProcesses(0x1000)
+        rows = drv.nvmlDeviceGetComputeRunningProcesses(0x1000)
         assert [size for _, size in lib.calls] == sizes
+        assert [(r["pid"], r["usedGpuMemory"]) for r in first] == before
         assert [(r["pid"], r["usedGpuMemory"]) for r in rows] == lib.procs
-        assert [r["comm"] for r in rows] == [""] * len(lib.procs)
+        assert [r["comm"] for r in first + rows] == [""] * (len(before) + len(lib.procs))
 
     def test_table_growing_every_call_gives_up(self):
-        lib = FakeNvmlLib(procs=[(1, GIB)], growth=(100,) * 10)
+        slack = nvml_ctypes.PROCESS_TABLE_SLACK
+        lib = FakeNvmlLib(procs=[(i, GIB) for i in range(1, slack + 2)], growth=(100,) * 10)
         with pytest.raises(torch_nvml.NvmlDriverError) as e:
             CtypesNvmlDriver(lib=lib).nvmlDeviceGetComputeRunningProcesses(0x1000)
         assert e.value.value == 7
-        assert len(lib.calls) == 1 + nvml_ctypes.PROCESS_TABLE_TRIES
+        assert len(lib.calls) == nvml_ctypes.PROCESS_TABLE_TRIES
+
+    def test_second_call_is_sized_from_the_first_rows(self):
+        lib = FakeNvmlLib(procs=[(pid, GIB) for pid in range(1, 6)])
+        drv = CtypesNvmlDriver(lib=lib)
+        for _ in range(3):
+            assert len(drv.nvmlDeviceGetComputeRunningProcesses(0x1000)) == 5
+        assert [size for _, size in lib.calls] == [8, 5 + 8, 5 + 8]
+
+    def test_two_handles_keep_separate_sizes(self):
+        tables = {0x1000: [(1, GIB)] * 3, 0x1001: [(2, GIB)] * 11}
+        lib = FakeNvmlLib()
+        sizes = []
+
+        def fill(handle, count, infos):
+            rows = tables[handle]
+            sizes.append((handle, count.value))
+            if count.value < len(rows):
+                count.value = len(rows)
+                return 7
+            for i, (pid, used) in enumerate(rows):
+                infos[i].pid, infos[i].usedGpuMemory = pid, used
+            count.value = len(rows)
+            return 0
+
+        lib.nvmlDeviceGetComputeRunningProcesses_v3 = fill
+        drv = CtypesNvmlDriver(lib=lib)
+        for _ in range(2):
+            for handle, rows in tables.items():
+                got = drv.nvmlDeviceGetComputeRunningProcesses(handle)
+                assert [(r["pid"], r["usedGpuMemory"]) for r in got] == rows
+        assert sizes == [(0x1000, 8), (0x1001, 8), (0x1001, 11 + 8),
+                         (0x1000, 3 + 8), (0x1001, 11 + 8)]
+
+    def test_table_that_shrinks_to_empty_then_grows(self):
+        lib = FakeNvmlLib(procs=[(pid, GIB) for pid in range(1, 11)])
+        drv = CtypesNvmlDriver(lib=lib)
+
+        def read() -> list:
+            return [(r["pid"], r["usedGpuMemory"])
+                    for r in drv.nvmlDeviceGetComputeRunningProcesses(0x1000)]
+
+        assert read() == lib.procs  # 10 rows: past the slack, two calls
+        lib.procs = []
+        assert read() == []
+        lib.procs = [(pid, 2 * GIB) for pid in range(20, 40)]
+        assert read() == lib.procs  # 20 rows after none: two calls again
+        assert read() == lib.procs
+        assert [size for _, size in lib.calls] == [8, 10 + 8, 10 + 8, 8, 20 + 8, 20 + 8]
+
+    def test_a_sample_makes_one_process_table_call_with_the_pairs_rows(self):
+        lib = FakeNvmlLib(procs=[(118, 17 * GIB)])
+        backend = torch_nvml.NvmlBackend(driver=CtypesNvmlDriver(lib=lib))
+        for n in range(1, 4):
+            (chip,) = backend.sample().chips
+            assert len(lib.calls) == n  # one call a sample, the first included
+            assert [(p.pid, p.used_bytes) for p in chip.processes] == [(118, float(17 * GIB))]
+        # The rows the sizing call and fill would read from the same table.
+        pair = FakeNvmlLib(procs=lib.procs)
+        count = ctypes.c_uint(0)
+        assert pair.nvmlDeviceGetComputeRunningProcesses_v3(0x1000, count, None) == 7
+        table = (nvml_ctypes.NvmlProcessInfo * (count.value + 8))()
+        count.value = len(table)
+        assert pair.nvmlDeviceGetComputeRunningProcesses_v3(0x1000, count, table) == 0
+        assert (CtypesNvmlDriver(lib=FakeNvmlLib(procs=lib.procs))
+                .nvmlDeviceGetComputeRunningProcesses(0x1000)
+                == [{"pid": r.pid, "usedGpuMemory": r.usedGpuMemory, "comm": ""}
+                    for r in table[:count.value]])
+
+    def test_concurrent_calls_get_distinct_tables(self):
+        # One call held inside the library, as a wedged driver call is held
+        # after the supervisor abandons it; the other runs meanwhile, and the
+        # held call writes its late rows while the other still reads.
+        lib = FakeNvmlLib()
+        entered, release, late_written = (threading.Event() for _ in range(3))
+        tables = []
+
+        def fill(handle, count, infos):
+            tables.append(infos)
+            if len(tables) == 1:
+                entered.set()
+                assert release.wait(WAIT_S)
+                infos[0].pid, infos[0].usedGpuMemory = 666, 6 * GIB
+                count.value = 1
+                late_written.set()
+                return 0
+            infos[0].pid, infos[0].usedGpuMemory = 7, GIB
+            count.value = 1
+            release.set()
+            assert late_written.wait(WAIT_S)
+            return 0
+
+        lib.nvmlDeviceGetComputeRunningProcesses_v3 = fill
+        drv = CtypesNvmlDriver(lib=lib)
+        held = []
+        worker = threading.Thread(
+            target=lambda: held.append(drv.nvmlDeviceGetComputeRunningProcesses(0x1000)))
+        worker.start()
+        assert entered.wait(WAIT_S)
+        rows = drv.nvmlDeviceGetComputeRunningProcesses(0x1000)
+        worker.join(WAIT_S)
+        assert ctypes.addressof(tables[0]) != ctypes.addressof(tables[1])
+        assert [(r["pid"], r["usedGpuMemory"]) for r in rows] == [(7, GIB)]
+        assert [(r["pid"], r["usedGpuMemory"]) for r in held[0]] == [(666, 6 * GIB)]
 
     def test_not_available_memory_is_none_and_skipped(self):
         lib = FakeNvmlLib(procs=[(5, nvml_ctypes.NVML_VALUE_NOT_AVAILABLE), (6, GIB)])

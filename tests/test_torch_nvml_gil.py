@@ -5,7 +5,7 @@ symbols the binding binds (``_SIGNATURES`` and the ``_v3`` process table);
 each call sleeps 50 us, as a driver call does, and the memory read can be
 wedged until the test lets it go, as a driver or card fault wedges it.
 Loaded through the port's own ``CtypesNvmlDriver`` (``LIBRARY`` pointed at
-the stub), one ``NvmlBackend.sample()`` of its one card makes 9 calls.
+the stub), one ``NvmlBackend.sample()`` of its one card makes 8 calls.
 
 The binding loads the library with ``ctypes.CDLL``, so a wedged call blocks
 only the supervisor's worker: the deadline abandons it while the poll loop,
@@ -75,7 +75,7 @@ int nvmlDeviceGetMemoryInfo(void *h, mem_t *m) {
 int nvmlDeviceGetUtilizationRates(void *h, util_t *u) {
   CALL(); u->gpu = 99; u->memory = 40; return 0;
 }
-/* One process: the sizing call (no room) answers INSUFFICIENT_SIZE. */
+/* One process: a table with no room for it answers INSUFFICIENT_SIZE. */
 int nvmlDeviceGetComputeRunningProcesses_v3(void *h, unsigned int *count, proc_t *rows) {
   CALL();
   if (rows == NULL || *count < 1) { *count = 1; return 7; }
@@ -225,6 +225,46 @@ def test_chip_smoke_times_each_call_through_both_loaders(stub):
     for loader, calls in runs.items():
         assert set(calls) == symbols, loader
         assert calls["sample"]["calls"] == 10
-        assert calls["nvmlDeviceGetComputeRunningProcesses_v3"]["calls"] == 20  # size, fetch
+        assert calls["nvmlDeviceGetComputeRunningProcesses_v3"]["calls"] == 10  # one a sample
         for name, quantiles in calls.items():
             assert 0 < quantiles["median"] <= quantiles["p99"], (loader, name)
+
+
+def test_chip_smoke_times_the_process_table_both_ways(stub):
+    # Phase 12's record of the process table on the stub's one process:
+    # the pair makes two calls a round, the binding's read one.
+    import chip_smoke
+
+    ways = chip_smoke.process_table_times("GPU-stub-0", True, rounds=10)
+    assert set(ways) == {"pair", "single"}
+    assert ways["pair"]["nvml_calls"] == 20 and ways["single"]["nvml_calls"] == 10
+    for way in ways.values():
+        assert way["pids"] == [4242] and way["calls"] == 10
+        assert 0 < way["median"] <= way["p99"] <= way["max"]
+
+
+def test_timing_bootstrap_counts_one_process_table_call_a_sample(stub):
+    # Phase 14's node exporter runs under NVML_TIMING_BOOTSTRAP: at its
+    # drain it reports how many process-table calls each sample made.
+    import json
+    import signal
+    import sys
+
+    import chip_smoke
+
+    code = (f"from tpu_pod_exporter_torch.backend import nvml_ctypes\n"
+            f"nvml_ctypes.LIBRARY = {stub!r}\n" + chip_smoke.NVML_TIMING_BOOTSTRAP)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, "--host", "127.0.0.1", "--port", "0",
+         "--interval-s", "0.05", "--log-level", "warning", "--backend", "nvml",
+         "--attribution", "none"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=chip_smoke.REPO)
+    time.sleep(1.5)
+    proc.send_signal(signal.SIGTERM)
+    out, err = proc.communicate(timeout=WAIT_S)
+    assert proc.returncode == 0, err
+    (line,) = [json.loads(x) for x in out.splitlines() if x.startswith('{"nvml_call_times"')]
+    (row,) = line["process_table_calls"]
+    calls, grown, samples = row
+    assert (calls, grown) == (1, 0) and samples >= 2
+    assert line["nvml_call_times"]["sample"]["calls"] == samples

@@ -26,11 +26,16 @@ Every non-zero return raises :class:`NvmlDriverError` carrying the code as
 not load, or lacks a symbol, raises :class:`BackendError` at construction.
 Nothing is loaded when this module is imported.
 
+The process table is read in one call where it fits: a table sized from
+the rows the same handle returned last time, plus slack, and a second,
+larger call only when NVML answers ``NVML_ERROR_INSUFFICIENT_SIZE``. So a
+sample of one card makes 8 calls, with or without processes.
+
 The library is loaded with ``ctypes.CDLL``, which releases the interpreter
 lock around every foreign call. That keeps a wedged NVML call (a driver or
 card fault) contained: the source supervisor abandons it at its deadline
 while the poll loop and ``/metrics`` and ``/healthz`` go on. The price is
-that each of a sample's 9 returns waits for the lock while another thread
+that each of a sample's 8 returns waits for the lock while another thread
 of the process runs Python, up to ``sys.getswitchinterval()`` (5 ms) a call.
 ``ctypes.PyDLL`` would keep the lock through each call and so freeze the
 whole process for as long as a call blocks.
@@ -53,9 +58,9 @@ NVML_ERROR_INSUFFICIENT_SIZE = NVML_ERROR_CODES["NVML_ERROR_INSUFFICIENT_SIZE"]
 # usedGpuMemory when NVML cannot read it (MIG, no permission): all ones.
 NVML_VALUE_NOT_AVAILABLE = (1 << 64) - 1
 NVML_DEVICE_BUFFER_SIZE = 96
-# Rows added to the process table's reported size, for processes that start
-# between the sizing call and the fill; and how often a grown table is
-# asked for again before the call gives up.
+# Rows added to the process table beyond the rows last seen (or reported),
+# for processes that start between two reads; and how many calls a read
+# makes at most while the table keeps outgrowing them before it gives up.
 PROCESS_TABLE_SLACK = 8
 PROCESS_TABLE_TRIES = 4
 
@@ -136,6 +141,8 @@ class CtypesNvmlDriver:
                     "--nvml-sim-gpus/--nvml-sim-spec for the simulated driver"
                 ) from e
         self._fns = {}
+        # handle -> the rows its last process-table call returned.
+        self._process_rows: dict[int, int] = {}
         for name, argtypes in _SIGNATURES.items():
             self._fns[name] = self._bind(lib, name, argtypes)
         for name in _PROCESS_SYMBOLS:
@@ -202,22 +209,21 @@ class CtypesNvmlDriver:
         return {"gpu": rates.gpu, "memory": rates.memory}
 
     def nvmlDeviceGetComputeRunningProcesses(self, handle) -> list:  # noqa: N802
-        """The compute process table: a sizing call with no room, then a
-        call with the reported size plus slack, again while the table keeps
-        growing in between."""
-        count = ctypes.c_uint(0)
-        table = None
-        ret = self._procs(handle, count, None)
+        """The compute process table in one call where it fits: room for the
+        rows this handle returned last time plus slack, and again with the
+        reported size plus slack while NVML answers that the table grew."""
+        size = self._process_rows.get(handle, 0) + PROCESS_TABLE_SLACK
         for _ in range(PROCESS_TABLE_TRIES):
-            if ret != NVML_ERROR_INSUFFICIENT_SIZE:
-                break
-            size = count.value + PROCESS_TABLE_SLACK
+            # A new table every call: a call the supervisor abandoned at its
+            # deadline may still be writing into its own.
             table = (NvmlProcessInfo * size)()
             count = ctypes.c_uint(size)
             ret = self._procs(handle, count, table)
+            if ret != NVML_ERROR_INSUFFICIENT_SIZE:
+                break
+            size = count.value + PROCESS_TABLE_SLACK
         _check(ret)
-        if table is None:
-            return []
+        self._process_rows[handle] = count.value
         return [
             {"pid": row.pid,
              "usedGpuMemory": (None if row.usedGpuMemory == NVML_VALUE_NOT_AVAILABLE
