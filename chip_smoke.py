@@ -89,7 +89,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                pair: a sizing call with no table, then the table; the
                binding's single call), 200 rounds idle and under the burn,
                alone and beside the Python thread: each way's median, p99
-               and max ms and its NVML calls.
+               and max ms and its NVML calls; then the C probe
+               (NVML_PROBE_SOURCE, built with gcc into chiprun_out/): the 8
+               calls of a sample from a process with no Python, at the node
+               exporter's 0.5 s period for 20 s beside itself at 10 ms for
+               10 s, idle and under the burn: four JSON lines, each call's
+               and each sample's wall and CPU ms, the samples over the 10 ms
+               limit and every call over 2 ms with its CLOCK_MONOTONIC start.
 13. node      — the node's native fast path and durable state under the
     state       16 GiB fill and the full-size burn: nativelib.load() gives the
                libtpumon just built from the port's native/tpumon.cc; the live
@@ -133,6 +139,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                one beside those NVML answered with a grown table) and its
                threads' run-queue waits from
                /proc/<pid>/task/*/schedstat, idle, under load and after.
+               The C probe runs at 0.5 s and at 10 ms, as two processes, for
+               as long as the node exporter is polled, while /proc/stat,
+               /proc/loadavg and every process's CPU ticks are read every
+               100 ms: the exporter's and the probes' slow samples on one
+               CLOCK_MONOTONIC time line, each with the probe calls over 2 ms
+               that overlap it and the host's CPU around it.
 15. drills    — the NVML probe (``probe --runtime nvml``) on the card: one
                device, nvidia-smi's UUID, the minor of the node this
                process holds, used memory up by the 16 GiB fill and down
@@ -154,8 +166,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                drills that grow RSS most (mem_pressure, store_continuity,
                partition_asymmetric) each alone in a process whose wrapper
                prints RSS beside glibc's mallinfo2() and pymalloc's arenas
-               at its start and exit. Prints each drill's seconds and
-               verdict.
+               at its start and exit, and the threads and RSS at the
+               scenario's two leak-bound reads. Prints each drill's
+               seconds and verdict, and the resident cost of an idle
+               thread on the host.
 16. lint      — the port's exporter-lint on its own tree: ``python -m
                tpu_pod_exporter_torch.analysis --format json`` finds
                nothing (counts by rule, seconds), ``--demo`` catches all
@@ -204,8 +218,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                SliceAggregator, the status document, the probe's answers
                through a simulated driver) and ``trace --replay`` and
                ``history --replay`` on the recording, each exiting 0.
+19. budgets   — the JAX package's Makefile host checks that no other phase
+               runs, each at its Makefile command with the package renamed,
+               the card idle, its state in a temporary directory:
+               restart-demo, gpu-demo (the committed NVML recording) and
+               chaos-demo must exit 0 and print their OK line; the timing
+               checks (trace-overhead, persist-fsync-check,
+               persist-overhead, egress-demo and egress-drain-check up to
+               three times each, as long as the script stays inside
+               SCRIPT_TARGET_S; fleet-query-demo once) print each run's
+               value beside the Makefile's budget and CI's, and whether the
+               median meets each. A run that fails only on its own budget
+               line is a timing miss, printed; any other failure fails the
+               phase.
 
-Then one JSON line with every kernel's numbers, nvidia-smi's line, and last
+Then the script's own seconds, one JSON line with every kernel's numbers,
+nvidia-smi's line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -229,8 +257,16 @@ from pathlib import Path
 import torch
 
 # The whole script stays under 1200 s; past this many seconds it dumps
-# every thread's stack and exits.
+# every thread's stack and exits. It aims to end inside SCRIPT_TARGET_S:
+# the budgets phase gives its timing checks their repeats only while they
+# fit before that, less SCRIPT_TAIL_S for what its clock (STARTED, after
+# the imports) does not see: the interpreter's start and torch's import
+# before it, the kernels line and the exit after the phase (14 s in all on
+# the card's host).
 WATCHDOG_S = 1140
+SCRIPT_TARGET_S = 900.0
+SCRIPT_TAIL_S = 30.0
+STARTED = time.monotonic()
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -459,15 +495,68 @@ print(json.dumps({"pid": os.getpid(), "reports": reports, "launches": tm.tanh_ma
                   "launches_by_kernel": {**tm.tanh_matmul.launches_by_kernel,
                                          "stage_rows": tm.stage_rows.launches}}))
 """
+# The budgets phase: the JAX package's Makefile host checks that no other
+# phase runs, each as its Makefile target runs it with the package renamed,
+# the card idle, one at a time, each run's state (its state flag's value,
+# and TMPDIR) in a temporary directory of its own. The functional checks
+# gate: (Makefile target, module, arguments, text of the line that says OK).
+BUDGET_STATE_FLAGS = ("--state-dir", "--trace-out", "--egress-dir")
+BUDGET_FUNCTIONAL = (
+    ("restart-demo", "persist", ("--restart-demo", "--state-dir", "restart-demo-state"),
+     "restart-demo: OK"),
+    ("gpu-demo", "backend.nvml", ("--demo", "--recording", "tests/fixtures/gpu-recorded.jsonl"),
+     "gpu-demo: replayed"),
+    ("chaos-demo", "chaos", ("--trace-out", "chaos-incident-trace.json"),
+     "recovered: breaker closed"),
+)
+# The timing checks run up to ``runs`` times at the Makefile's budget: each
+# once, then the repeats, the most expensive check's first, each only while
+# it fits before the phase's deadline (so the cheapest checks' repeats are
+# cut first). Each run's value is read from its own output (``value``: the
+# pattern of the number, in ``unit``; the egress demo's by
+# ``egress_overhead``) and printed beside the Makefile's budget and CI's
+# (.github/workflows/ci.yml), in that unit, with whether the median meets
+# each: printed, not gated. A run whose only failure is the check's own
+# budget line is a timing miss; any other failure, a traceback or a
+# missing value fails the phase.
+BUDGET_TIMING = (
+    {"target": "trace-overhead", "module": "trace", "runs": 3,
+     "args": ("--overhead-check", "--polls", "200", "--chips", "256", "--budget", "0.05"),
+     "value": r"overhead ([+-]?[\d.]+)% \(budget", "unit": "%",
+     "budgets": {"makefile": 5.0, "ci": 15.0}},
+    {"target": "persist-fsync-check", "module": "persist", "runs": 3,
+     "args": ("--fsync-check", "--records", "100", "--budget-ms", "50"),
+     "value": r"p99 ([\d.]+)ms", "unit": "ms",
+     "budgets": {"makefile": 50.0, "ci": 50.0}},
+    {"target": "persist-overhead", "module": "persist", "runs": 3,
+     "args": ("--overhead-check", "--polls", "200", "--chips", "256", "--budget", "0.02"),
+     "value": r"overhead ([+-]?[\d.]+)% \(budget", "unit": "%",
+     "budgets": {"makefile": 2.0, "ci": 5.0}},
+    {"target": "fleet-query-demo", "module": "loadgen.fleet", "runs": 1,
+     "args": ("--targets", "64", "--budget-ms", "1500"),
+     "value": r'"query_p99_ms": ([\d.]+)', "unit": "ms",
+     "budgets": {"makefile": 1500.0, "ci": 4500.0}},
+    {"target": "egress-demo", "module": "egress", "runs": 3,
+     "args": ("--demo", "--egress-dir", "egress-demo-state"),
+     "value": None, "unit": "%", "budgets": {"makefile": 5.0, "ci": 50.0}},
+    {"target": "egress-drain-check", "module": "egress", "runs": 3,
+     "args": ("--drain-check", "--outage-s", "180", "--budget-s", "20"),
+     "value": r"drained in ([\d.]+)s", "unit": "s",
+     "budgets": {"makefile": 20.0, "ci": 60.0}},
+)
+BUDGET_MISS = re.compile(r"(over|exceeds|exceeded) budget")
+BUDGET_TIMEOUT_S = 180  # a run that takes longer fails the phase
 # The memory drills (ROADMAP.md fault B), each alone in a process: the
 # ``main()`` of ``tpu_pod_exporter_torch.<argv[1]>`` on ``argv[2:]``, with
 # one JSON line after the imports and one at exit (after a gc pass) of the
 # process's RSS beside glibc's mallinfo2() over all arenas (bytes in use,
 # free but held by the allocator, mmapped, the arenas' size) and
 # pymalloc's arenas and the bytes in their allocated blocks
-# (``sys._debugmallocstats``, read off fd 2).
+# (``sys._debugmallocstats``, read off fd 2). For a scenario, one more line
+# at exit: the process's threads and RSS at the leak bound's baseline read
+# and at its end read.
 DRILL_MEMORY_BOOTSTRAP = """
-import atexit, ctypes, gc, importlib, json, os, re, sys, tempfile
+import atexit, ctypes, gc, importlib, json, os, re, sys, tempfile, threading
 
 
 class Mallinfo2(ctypes.Structure):
@@ -509,11 +598,56 @@ def snapshot(when):
                       **pymalloc()}), flush=True)
 
 
+reads = []
+
+
+def leak_reads():
+    print(json.dumps({"memory": "leak_reads", "reads": [
+        {"threads": n, "rss_bytes": rss} for n, rss in reads[:1] + reads[-1:]]}), flush=True)
+
+
+if sys.argv[1] == "loadgen.scenario":
+    from tpu_pod_exporter_torch import utils
+
+    rss_bytes = utils.process_rss_bytes
+
+    def read_rss():
+        value = rss_bytes()
+        if sys._getframe(1).f_code.co_name in ("_check_tick", "_finish"):
+            reads.append((threading.active_count(), value))
+        return value
+
+    utils.process_rss_bytes = read_rss
+    atexit.register(leak_reads)
 module = importlib.import_module("tpu_pod_exporter_torch." + sys.argv[1])
 sys.argv = [module.__name__, *sys.argv[2:]]
 snapshot("start")
 atexit.register(snapshot, "exit")
 sys.exit(module.main())
+"""
+# The resident cost of a thread on the host: this many idle threads started
+# in a fresh process, its RSS before and after them.
+THREAD_RSS_THREADS = 64
+THREAD_RSS_BOOTSTRAP = """
+import json, sys, threading, time
+
+
+def rss():
+    with open("/proc/self/status") as status:
+        return next(int(ln.split()[1]) * 1024 for ln in status if ln.startswith("VmRSS:"))
+
+
+n = int(sys.argv[1])
+done = threading.Event()
+before = rss()
+threads = [threading.Thread(target=done.wait, daemon=True) for _ in range(n)]
+for t in threads:
+    t.start()
+time.sleep(0.5)
+after = rss()
+done.set()
+print(json.dumps({"threads": n, "rss_bytes_before": before, "rss_bytes_after": after,
+                  "bytes_a_thread": (after - before) / n}))
 """
 # The deploy phase: the GPU image, DaemonSet and fleet manifests, and what
 # the emulation refuses to import (the image installs the wheel without the
@@ -575,7 +709,9 @@ finally:
 # interpreter lock or sleeps in a futex). At exit it prints one JSON line:
 # per symbol the calls, median, p99 and largest of each, and the native ids
 # of the calling threads; and each sample over the device-read limit with
-# the calls made inside it; and how many samples made how many process-table
+# its start and the calls made inside it, each with its start (starts are
+# time.monotonic(), CLOCK_MONOTONIC, the clock NVML_PROBE_SOURCE stamps its
+# calls with); and how many samples made how many process-table
 # calls, and how many of those had room for rows and were answered that the
 # table grew past it (a sizing call, with no room, is not one of them).
 NVML_TIMING_BOOTSTRAP = """
@@ -594,6 +730,7 @@ def timed(name, fn):
             local.inside, local.tables = [], [0, 0]
         table = name.startswith("nvmlDeviceGetComputeRunningProcesses")
         room = args[1].value if table else 0
+        start = time.monotonic()
         t0, c0 = time.perf_counter(), time.thread_time()
         ret = None
         try:
@@ -605,11 +742,12 @@ def timed(name, fn):
             calls.setdefault(name, []).append((wall, cpu, threading.get_native_id()))
             if name == "sample":
                 if wall > LIMIT_MS:
-                    slow.append({"wall_ms": wall, "cpu_ms": cpu, "calls": local.inside})
+                    slow.append({"start_s": start, "wall_ms": wall, "cpu_ms": cpu,
+                                 "calls": local.inside})
                 tables[tuple(local.tables)] += 1
                 local.inside = None
             elif inside is not None:
-                inside.append([name, wall, cpu])
+                inside.append([name, wall, cpu, start])
                 if table:
                     local.tables[0] += 1
                     local.tables[1] += room > 0 and ret == nvml_ctypes.NVML_ERROR_INSUFFICIENT_SIZE
@@ -648,6 +786,289 @@ atexit.register(report)
 sys.argv = ["tpu_pod_exporter_torch", *sys.argv[1:]]
 runpy.run_module("tpu_pod_exporter_torch", run_name="__main__", alter_sys=True)
 """ % (DEVICE_READ_LIMIT_MS,)
+# Fault A's probe: NVML's device read timed from a process with no Python.
+# It makes the calls of one NvmlBackend.sample() in its order (the count,
+# then each card's handle, name, UUID, minor, memory, utilization and one
+# process-table read sized as the port's binding sizes it), each timed on
+# CLOCK_MONOTONIC and CLOCK_THREAD_CPUTIME_ID, at a fixed period for a fixed
+# time (argv: period ms, seconds, the device-read limit ms, the slow-call
+# ms, the library), and stops early on SIGTERM. At exit it prints one JSON
+# line: per call and for the whole sample the median, p99 and largest wall
+# and CPU ms; the first sample's calls in order; the samples over the limit
+# and every call over the slow-call ms, each with its CLOCK_MONOTONIC start.
+# An NVML error exits 1. Built with gcc by ``build_nvml_probe``.
+NVML_PROBE_SOURCE = r"""/* NVML's device read timed from a process with no interpreter: the calls
+ * one NvmlBackend.sample() makes, in its order, at a fixed period. */
+#define _GNU_SOURCE
+#include <dlfcn.h>
+#include <errno.h>
+#include <math.h>
+#include <signal.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <time.h>
+
+#ifndef PROCESS_TABLE_SLACK
+#define PROCESS_TABLE_SLACK 8
+#endif
+#ifndef PROCESS_TABLE_TRIES
+#define PROCESS_TABLE_TRIES 4
+#endif
+#define BUFFER_SIZE 96
+#define INSUFFICIENT_SIZE 7
+#define MAX_DEVICES 64
+#define MAX_SLOW 4096
+
+typedef struct { unsigned long long total, free, used; } nvml_memory;
+typedef struct { unsigned int gpu, memory; } nvml_utilization;
+typedef struct {
+  unsigned int pid;
+  unsigned long long used;
+  unsigned int gpu_instance, compute_instance;
+} nvml_process;
+
+enum { COUNT, HANDLE, NAME, UUID, MINOR, MEMORY, UTILIZATION, PROCESSES, KINDS };
+static const char *symbol[KINDS] = {
+    "nvmlDeviceGetCount_v2", "nvmlDeviceGetHandleByIndex_v2", "nvmlDeviceGetName",
+    "nvmlDeviceGetUUID", "nvmlDeviceGetMinorNumber", "nvmlDeviceGetMemoryInfo",
+    "nvmlDeviceGetUtilizationRates", "nvmlDeviceGetComputeRunningProcesses_v3"};
+
+typedef struct { double *wall, *cpu; size_t n, cap; } series;
+typedef struct { int kind; double start, wall, cpu; } slow_call;
+typedef struct { double start, wall, cpu; } slow_sample;
+
+static series calls[KINDS], samples;
+static slow_call slow_calls[MAX_SLOW];
+static slow_sample slow_samples[MAX_SLOW];
+static size_t n_slow_calls, slow_calls_total, n_slow_samples, n_over_limit, n_calls, n_grown;
+static int order[8 * MAX_DEVICES], n_order, recording_order;
+static double slow_call_ms;
+static volatile sig_atomic_t stopping;
+
+static void on_signal(int sig) { (void)sig; stopping = 1; }
+
+static double now_s(clockid_t clock) {
+  struct timespec ts;
+  clock_gettime(clock, &ts);
+  return ts.tv_sec + ts.tv_nsec * 1e-9;
+}
+
+static void push(series *s, double wall, double cpu) {
+  if (s->n == s->cap) {
+    s->cap = s->cap ? 2 * s->cap : 1024;
+    s->wall = realloc(s->wall, s->cap * sizeof *s->wall);
+    s->cpu = realloc(s->cpu, s->cap * sizeof *s->cpu);
+    if (!s->wall || !s->cpu) { perror("nvml_probe"); exit(3); }
+  }
+  s->wall[s->n] = wall;
+  s->cpu[s->n++] = cpu;
+}
+
+static void *load(void *lib, const char *name) {
+  void *fn = dlsym(lib, name);
+  if (!fn) { fprintf(stderr, "nvml_probe: no symbol %s\n", name); exit(2); }
+  return fn;
+}
+
+static void check(const char *name, int ret) {
+  if (ret != 0) {
+    fprintf(stderr, "nvml_probe: %s returned %d\n", name, ret);
+    exit(1);
+  }
+}
+
+/* One call, timed on both clocks; its ms kept under its kind. */
+#define TIMED(kind, call)                                                  \
+  ({                                                                       \
+    double w0_ = now_s(CLOCK_MONOTONIC), c0_ = now_s(CLOCK_THREAD_CPUTIME_ID); \
+    int ret_ = (call);                                                     \
+    double wall_ = (now_s(CLOCK_MONOTONIC) - w0_) * 1e3;                   \
+    double cpu_ = (now_s(CLOCK_THREAD_CPUTIME_ID) - c0_) * 1e3;            \
+    push(&calls[kind], wall_, cpu_);                                       \
+    if (recording_order && n_order < (int)(sizeof order / sizeof *order))  \
+      order[n_order++] = kind;                                             \
+    n_calls++;                                                             \
+    if (wall_ > slow_call_ms && slow_calls_total++ < MAX_SLOW)             \
+      slow_calls[n_slow_calls++] = (slow_call){kind, w0_, wall_, cpu_};    \
+    ret_;                                                                  \
+  })
+
+static int (*get_count)(unsigned int *);
+static int (*get_handle)(unsigned int, void **);
+static int (*get_name)(void *, char *, unsigned int);
+static int (*get_uuid)(void *, char *, unsigned int);
+static int (*get_minor)(void *, unsigned int *);
+static int (*get_memory)(void *, nvml_memory *);
+static int (*get_utilization)(void *, nvml_utilization *);
+static int (*get_processes)(void *, unsigned int *, nvml_process *);
+static unsigned int process_rows[MAX_DEVICES];
+
+/* One sample: the count, then each card's handle, name, UUID, minor,
+ * memory, utilization and process table, as NvmlBackend.sample() reads. */
+static void sample(void) {
+  unsigned int count = 0;
+  check(symbol[COUNT], TIMED(COUNT, get_count(&count)));
+  for (unsigned int i = 0; i < count && i < MAX_DEVICES; i++) {
+    void *handle = NULL;
+    char text[BUFFER_SIZE];
+    unsigned int minor = 0;
+    nvml_memory memory;
+    nvml_utilization rates;
+    check(symbol[HANDLE], TIMED(HANDLE, get_handle(i, &handle)));
+    check(symbol[NAME], TIMED(NAME, get_name(handle, text, BUFFER_SIZE)));
+    check(symbol[UUID], TIMED(UUID, get_uuid(handle, text, BUFFER_SIZE)));
+    check(symbol[MINOR], TIMED(MINOR, get_minor(handle, &minor)));
+    check(symbol[MEMORY], TIMED(MEMORY, get_memory(handle, &memory)));
+    check(symbol[UTILIZATION], TIMED(UTILIZATION, get_utilization(handle, &rates)));
+    /* The binding's read: room for the rows seen last time plus slack, a
+     * fresh table every call, larger only while NVML says it grew. */
+    unsigned int size = process_rows[i] + PROCESS_TABLE_SLACK, rows = 0;
+    int ret = 0;
+    for (int tries = 0; tries < PROCESS_TABLE_TRIES; tries++) {
+      nvml_process *table = calloc(size, sizeof *table);
+      if (!table) { perror("nvml_probe"); exit(3); }
+      rows = size;
+      ret = TIMED(PROCESSES, get_processes(handle, &rows, table));
+      free(table);
+      if (ret != INSUFFICIENT_SIZE) break;
+      n_grown++;
+      size = rows + PROCESS_TABLE_SLACK;
+    }
+    check(symbol[PROCESSES], ret);
+    process_rows[i] = rows;
+  }
+}
+
+static int by_value(const void *a, const void *b) {
+  double x = *(const double *)a, y = *(const double *)b;
+  return (x > y) - (x < y);
+}
+
+/* {"median", "p99" (nearest rank), "max"} of n values, as the bootstrap's. */
+static void print_quantiles(const double *values, size_t n) {
+  if (n == 0) { printf("null"); return; }
+  double *sorted = malloc(n * sizeof *sorted);
+  if (!sorted) { perror("nvml_probe"); exit(3); }
+  memcpy(sorted, values, n * sizeof *sorted);
+  qsort(sorted, n, sizeof *sorted, by_value);
+  printf("{\"median\": %.6f, \"p99\": %.6f, \"max\": %.6f}", sorted[n / 2],
+         sorted[(size_t)ceil(0.99 * n) - 1], sorted[n - 1]);
+  free(sorted);
+}
+
+static void print_series(const series *s) {
+  printf("{\"calls\": %zu, \"wall_ms\": ", s->n);
+  print_quantiles(s->wall, s->n);
+  printf(", \"cpu_ms\": ");
+  print_quantiles(s->cpu, s->n);
+  printf("}");
+}
+
+int main(int argc, char **argv) {
+  if (argc < 5) {
+    fprintf(stderr, "usage: %s PERIOD_MS SECONDS LIMIT_MS SLOW_CALL_MS [LIBRARY]\n", argv[0]);
+    return 2;
+  }
+  double period_s = atof(argv[1]) / 1e3, seconds = atof(argv[2]);
+  double limit_ms = atof(argv[3]);
+  const char *library = argc > 5 ? argv[5] : "libnvidia-ml.so.1";
+  slow_call_ms = atof(argv[4]);
+  if (period_s <= 0 || seconds <= 0) {
+    fprintf(stderr, "nvml_probe: the period and the time must be positive\n");
+    return 2;
+  }
+  struct sigaction stop = {.sa_handler = on_signal};
+  sigaction(SIGTERM, &stop, NULL);
+  sigaction(SIGINT, &stop, NULL);
+
+  void *lib = dlopen(library, RTLD_NOW);
+  if (!lib) { fprintf(stderr, "nvml_probe: %s\n", dlerror()); return 2; }
+  int (*init)(void) = load(lib, "nvmlInit_v2");
+  int (*shutdown)(void) = load(lib, "nvmlShutdown");
+  get_count = load(lib, symbol[COUNT]);
+  get_handle = load(lib, symbol[HANDLE]);
+  get_name = load(lib, symbol[NAME]);
+  get_uuid = load(lib, symbol[UUID]);
+  get_minor = load(lib, symbol[MINOR]);
+  get_memory = load(lib, symbol[MEMORY]);
+  get_utilization = load(lib, symbol[UTILIZATION]);
+  get_processes = dlsym(lib, symbol[PROCESSES]);
+  if (!get_processes) {
+    symbol[PROCESSES] = "nvmlDeviceGetComputeRunningProcesses_v2";
+    get_processes = load(lib, symbol[PROCESSES]);
+  }
+
+  double t_init = now_s(CLOCK_MONOTONIC);
+  check("nvmlInit_v2", init());
+  double init_ms = (now_s(CLOCK_MONOTONIC) - t_init) * 1e3;
+
+  /* Samples on a fixed grid from the first: a sample that overruns its
+   * period skips the slots it covered, and they are counted as late. */
+  double first = now_s(CLOCK_MONOTONIC), end = first + seconds, last = first;
+  size_t late = 0;
+  for (long k = 0; !stopping; k++) {
+    double due = first + k * period_s, t = now_s(CLOCK_MONOTONIC);
+    if (k > 0 && due < t) {
+      long skipped = (long)ceil((t - due) / period_s);
+      k += skipped;
+      late += skipped;
+      due = first + k * period_s;
+    }
+    if (due >= end) break;
+    struct timespec at = {.tv_sec = (time_t)due};
+    at.tv_nsec = (long)((due - (double)at.tv_sec) * 1e9);
+    while (clock_nanosleep(CLOCK_MONOTONIC, TIMER_ABSTIME, &at, NULL) == EINTR && !stopping) {
+    }
+    if (stopping) break;
+    recording_order = k == 0;
+    double w0 = now_s(CLOCK_MONOTONIC), c0 = now_s(CLOCK_THREAD_CPUTIME_ID);
+    sample();
+    double wall = (now_s(CLOCK_MONOTONIC) - w0) * 1e3;
+    double cpu = (now_s(CLOCK_THREAD_CPUTIME_ID) - c0) * 1e3;
+    push(&samples, wall, cpu);
+    last = w0 + wall / 1e3;
+    if (wall > limit_ms && n_over_limit++ < MAX_SLOW)
+      slow_samples[n_slow_samples++] = (slow_sample){w0, wall, cpu};
+  }
+  check("nvmlShutdown", shutdown());
+
+  printf("{\"probe\": \"nvml\", \"library\": \"%s\", \"period_ms\": %.3f, \"seconds\": %.6f, "
+         "\"limit_ms\": %.3f, \"slow_call_ms\": %.3f, \"first_s\": %.6f, \"last_s\": %.6f, "
+         "\"init_ms\": %.6f, \"samples\": %zu, \"late\": %zu, \"calls_per_sample\": %.6f, "
+         "\"grown\": %zu, \"order\": [",
+         library, period_s * 1e3, last - first, limit_ms, slow_call_ms, first, last, init_ms,
+         samples.n, late, samples.n ? (double)n_calls / samples.n : 0.0, n_grown);
+  for (int i = 0; i < n_order; i++) printf("%s\"%s\"", i ? ", " : "", symbol[order[i]]);
+  printf("], \"sample\": ");
+  print_series(&samples);
+  printf(", \"calls\": {");
+  for (int kind = 0; kind < KINDS; kind++) {
+    printf("%s\"%s\": ", kind ? ", " : "", symbol[kind]);
+    print_series(&calls[kind]);
+  }
+  printf("}, \"over_limit\": %zu, \"slow_samples\": [", n_over_limit);
+  for (size_t i = 0; i < n_slow_samples; i++)
+    printf("%s{\"start_s\": %.6f, \"wall_ms\": %.6f, \"cpu_ms\": %.6f}", i ? ", " : "",
+           slow_samples[i].start, slow_samples[i].wall, slow_samples[i].cpu);
+  printf("], \"slow_calls_total\": %zu, \"slow_calls\": [", slow_calls_total);
+  for (size_t i = 0; i < n_slow_calls; i++)
+    printf("%s{\"call\": \"%s\", \"start_s\": %.6f, \"wall_ms\": %.6f, \"cpu_ms\": %.6f}",
+           i ? ", " : "", symbol[slow_calls[i].kind], slow_calls[i].start, slow_calls[i].wall,
+           slow_calls[i].cpu);
+  printf("]}\n");
+  return 0;
+}
+"""
+# The probe runs at the node exporter's period and at 10 ms, side by side:
+# period ms -> seconds (phase 12; phase 14 stops both when its node exporter
+# stops). Calls over PROBE_SLOW_CALL_MS are listed with their start. Phase
+# 14 reads the host's CPU every HOST_READ_S over the same window.
+PROBE_SECONDS = {FLEET_INTERVAL_S * 1e3: 20.0, 10.0: 10.0}
+PROBE_DIR = REPO / "chiprun_out" / "nvml-probe"
+PROBE_SLOW_CALL_MS = 2.0
+PROBE_MAX_SECONDS = 300.0
+HOST_READ_S = 0.1
 # What the card serves along the GPU node path, written as it came by the
 # phase that takes it into chiprun_out/h100-capture/, then listed with its
 # size and sha256 in a manifest and replayed through the port (phase 18). They are committed unchanged as
@@ -661,7 +1082,8 @@ CAPTURE_MAX_BYTES = 512 << 10
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "at_s": time.monotonic() - STARTED}),
+          flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -1458,6 +1880,59 @@ def process_table_times(uuid: str, beside_python: bool, rounds: int = NVML_SAMPL
                    "nvml_calls": calls[name], "pids": pids[name]} for name in ways}
 
 
+def build_nvml_probe(out_dir: Path) -> Path:
+    """NVML_PROBE_SOURCE written into ``out_dir`` and built there with gcc,
+    its process-table slack and tries the port's binding's."""
+    from tpu_pod_exporter_torch.backend import nvml_ctypes
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, binary = out_dir / "nvml_probe.c", out_dir / "nvml_probe"
+    src.write_text(NVML_PROBE_SOURCE)
+    proc = subprocess.run(
+        ["gcc", "-O2", "-Wall", f"-DPROCESS_TABLE_SLACK={nvml_ctypes.PROCESS_TABLE_SLACK}",
+         f"-DPROCESS_TABLE_TRIES={nvml_ctypes.PROCESS_TABLE_TRIES}", "-o", str(binary),
+         str(src), "-ldl", "-lm"], capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"the NVML probe did not build:\n{proc.stderr[-3000:]}")
+    return binary
+
+
+def probe_argv(binary: Path, period_ms: float, seconds: float,
+               library: str | None = None) -> list:
+    """The probe at ``period_ms`` for ``seconds``, on ``library`` (default
+    libnvidia-ml.so.1)."""
+    return [str(binary), f"{period_ms:g}", f"{seconds:g}", f"{DEVICE_READ_LIMIT_MS:g}",
+            f"{PROBE_SLOW_CALL_MS:g}", *([library] if library else [])]
+
+
+def probe_line(rc: int, out: str, err: str = "") -> dict:
+    """The probe's JSON line from its output; raises unless it exited 0."""
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith('{"probe"')]
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"the NVML probe exited {rc}:\n{out[-1500:]}\n{err[-1500:]}")
+    return lines[0]
+
+
+def run_probes(binary: Path, library: str | None = None) -> dict:
+    """The probe at each period of PROBE_SECONDS, side by side, each for its
+    time: {period ms: its JSON line}."""
+    procs = {period: subprocess.Popen(probe_argv(binary, period, seconds, library),
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True)
+             for period, seconds in PROBE_SECONDS.items()}
+    lines = {}
+    try:
+        for period, proc in procs.items():
+            out, err = proc.communicate(timeout=PROBE_SECONDS[period] + 30)
+            lines[period] = probe_line(proc.returncode, out, err)
+        return lines
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+
+
 def kubelet_fixture(tmp: str, uuid: str) -> dict:
     """A synthetic kubelet checkpoint that gives the card ``uuid`` to the
     smoke pod, and the pod's UID map, written under ``tmp``; returns the
@@ -1564,6 +2039,8 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
     calls = {"idle": nvml_call_times(False), "idle_beside_python": nvml_call_times(True)}
     tables = {"idle": process_table_times(torch_uuid, False),
               "idle_beside_python": process_table_times(torch_uuid, True)}
+    probe = build_nvml_probe(PROBE_DIR)
+    probes = {"idle": run_probes(probe)}
     stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
                                  batch=BATCH, iters=ITERS, device=dev)
     stim.start()
@@ -1576,11 +2053,15 @@ def phase_nvml(dev, tm, hwcheck, uuid: str) -> tuple:
         calls["burn_beside_python"] = nvml_call_times(True)
         tables["burn"] = process_table_times(torch_uuid, False)
         tables["burn_beside_python"] = process_table_times(torch_uuid, True)
+        probes["burn"] = run_probes(probe)
     finally:
         stim.stop()
         backend.close()
     emit("nvml_calls", samples=NVML_SAMPLES, loaders=list(NVML_LOADERS),
          runs=calls, process_table=tables, card=card_line())
+    for run, lines in probes.items():
+        for line in lines.values():
+            emit("nvml_probe", run=run, card=card_line(), **line)
     (idle_chip,) = [c for c in idle_sample if c.info.device_ids[0] == torch_uuid]
     emit("nvml_numbers", sample_ms_idle=idle_ms, sample_ms_burn=burn_ms,
          poll_phase_last_ms={phase: report["phases"][phase]["poll_phase_last_ms"]
@@ -2152,6 +2633,119 @@ def proc_usage(pid: int) -> tuple[float, float]:
     return cpu_s, rss
 
 
+class HostCpu:
+    """The host's CPU, read every HOST_READ_S on a thread for as long as the
+    block: each reading is (time.monotonic(), /proc/stat's busy and total
+    ticks, /proc/loadavg's 1-minute load and its running/total tasks, the
+    user and system ticks of every process in /proc), from ``start()`` to
+    ``close()``."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self.readings: list = []
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, name="host-cpu", daemon=True)
+
+    @staticmethod
+    def read() -> tuple:
+        with open("/proc/stat") as f:
+            ticks = [int(x) for x in f.readline().split()[1:9]]
+        with open("/proc/loadavg") as f:
+            load = f.read().split()
+        processes = 0
+        for pid in os.listdir("/proc"):
+            if not pid.isdigit():
+                continue
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:  # the process has exited
+                continue
+            processes += int(fields[11]) + int(fields[12])
+        # busy: all but idle and iowait
+        return (time.monotonic(), sum(ticks) - ticks[3] - ticks[4], sum(ticks),
+                float(load[0]), load[3], processes)
+
+    def run(self) -> None:
+        self.readings.append(self.read())
+        while not self.stop.wait(HOST_READ_S):
+            self.readings.append(self.read())
+
+    def start(self) -> None:
+        self.thread.start()
+
+    def close(self) -> None:
+        self.stop.set()
+        if self.thread.ident is not None:
+            self.thread.join(timeout=10)
+
+
+def host_between(a: tuple, b: tuple, cpus: int) -> dict:
+    """The host's CPU between two HostCpu readings: /proc/stat's busy share
+    (None where its ticks did not move), the processes' busy share of
+    ``cpus`` cores, and the load and tasks of the later reading."""
+    dt = b[0] - a[0]
+    return {"stat_busy_share": (b[1] - a[1]) / (b[2] - a[2]) if b[2] > a[2] else None,
+            "process_busy_share": ((b[5] - a[5]) / (dt * os.sysconf("SC_CLK_TCK") * cpus)
+                                   if dt > 0 else None),
+            "load1": b[3], "tasks": b[4]}
+
+
+def stall_timeline(exporter: list, probes: dict, readings: list, t0: float,
+                   cpus: int) -> dict:
+    """The node exporter's slow samples (its timing bootstrap's, each with
+    ``start_s``, ``wall_ms``, ``cpu_ms`` and its ``calls``) and each probe's
+    (``probes``: name -> its JSON line) on one CLOCK_MONOTONIC time line from
+    ``t0``. Each carries the other processes' probe calls over
+    PROBE_SLOW_CALL_MS that overlap it and the host's CPU between the
+    readings around it; the exporter's, the call that held most of it."""
+    def around(start: float, end: float) -> dict:
+        before = [r for r in readings if r[0] <= start]
+        after = [r for r in readings if r[0] >= end]
+        return host_between(before[-1], after[0], cpus) if before and after else {}
+
+    calls = [(name, c) for name, line in probes.items() for c in line["slow_calls"]]
+    events = []
+    for who, samples in (("exporter", exporter),
+                         *((name, line["slow_samples"]) for name, line in probes.items())):
+        for sample in samples:
+            start = sample["start_s"]
+            end = start + sample["wall_ms"] / 1e3
+            event = {"t_s": start - t0, "who": who, "wall_ms": sample["wall_ms"],
+                     "cpu_ms": sample["cpu_ms"],
+                     "probe_calls_over_slow": [
+                         [name, c["call"], c["start_s"] - t0, c["wall_ms"]] for name, c in calls
+                         if name != who and c["start_s"] < end
+                         and c["start_s"] + c["wall_ms"] / 1e3 > start],
+                     **around(start, end)}
+            if who == "exporter" and sample["calls"]:
+                event["held_by"] = max(sample["calls"], key=lambda c: c[1])[:2]
+            events.append(event)
+    events.sort(key=lambda e: e["t_s"])
+    window = [host_between(a, b, cpus) for a, b in zip(readings, readings[1:])]
+
+    def spread(key: str) -> dict | None:
+        values = sorted(w[key] for w in window if w[key] is not None)
+        return None if not values else {
+            "median": values[len(values) // 2],
+            "p99": values[math.ceil(0.99 * len(values)) - 1], "max": values[-1]}
+
+    mine = [e for e in events if e["who"] == "exporter"]
+    return {"cpus": cpus, "readings": len(readings),
+            "window_s": readings[-1][0] - readings[0][0] if readings else 0.0,
+            "stat_busy_share": spread("stat_busy_share"),
+            "process_busy_share": spread("process_busy_share"),
+            "loadavg": sorted({r[3] for r in readings}),
+            "exporter_slow": len(mine),
+            "exporter_slow_beside_probe_call": sum(bool(e["probe_calls_over_slow"])
+                                                   for e in mine),
+            "probe_slow": {name: line["over_limit"] for name, line in probes.items()},
+            "probe_calls_over_slow": {name: line["slow_calls_total"]
+                                      for name, line in probes.items()},
+            "events": events}
+
+
 def parsed(body: bytes) -> list:
     from tpu_pod_exporter_torch.metrics.parse import parse_exposition
 
@@ -2284,11 +2878,19 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
     reset_counts(tm)
     stim = hwcheck.TorchStimulus(hbm_bytes=FILL_BYTES, width=WIDTH, depth=DEPTH,
                                  batch=BATCH, iters=ITERS, device=dev)
+    host = HostCpu()
+    probes = [f"probe_{period:g}ms" for period in PROBE_SECONDS]
     receiver = WebhookReceiver()
     receiver.start()  # before the try: its stop() waits for a started server
     stream = None
     try:
         kubelet = kubelet_fixture(tmp.name, uuid)
+        # The probes beside the real node for as long as it is polled, and
+        # the host's CPU read over the same window.
+        probe = build_nvml_probe(PROBE_DIR)
+        host.start()
+        for period in PROBE_SECONDS:
+            spawn(f"probe_{period:g}ms", probe_argv(probe, period, PROBE_MAX_SECONDS))
         # The nodes: the real one on the card, the simulated ones in a helper.
         node_port = free_port()
         spawn("node", fleet_node_argv(node_port, kubelet))
@@ -2466,17 +3068,20 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
 
         # Every tier drains on SIGTERM and exits 0; then the nodes.
         exits = {}
-        for name in ("replica", "root", "leaf0", "leaf1", "aggregate", "node", "sim_nodes"):
+        for name in ("replica", "root", "leaf0", "leaf1", "aggregate", "node", *probes,
+                     "sim_nodes"):
             procs[name].send_signal(signal.SIGTERM)
             try:
                 exits[name] = procs[name].wait(timeout=30)
             except subprocess.TimeoutExpired:
                 exits[name] = None
+        host.close()
         posts = receiver.posts()
         node_calls = [json.loads(line) for line in logs["node"].read_text().splitlines()
                       if line.startswith('{"nvml_call_times"')]
         if len(node_calls) != 1:
             fail(f"the node exporter printed {len(node_calls)} NVML timing lines")
+        probe_lines = {name: probe_line(exits[name], logs[name].read_text()) for name in probes}
 
         # ------------------------------------------------------------ checks
         # 1. The flat aggregator.
@@ -2641,6 +3246,7 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
             stream.stop()
         receiver.stop()
         stim.stop()
+        host.close()
         tmp.cleanup()
 
     def cpu_and_rss(since: str, until: str) -> dict:
@@ -2674,6 +3280,9 @@ def phase_fleet(dev, tm, hwcheck, uuid: str) -> dict:
                      process_table_calls={"node": tables},
                      process_table_calls_per_sample={"node": table_calls / max(1, samples)},
                      run_queue_wait={"node": waits})
+    emit("fleet_probe", card=card_line(), probes=probe_lines,
+         timeline=stall_timeline(calls["slow_samples"], probe_lines, host.readings,
+                                 host.readings[0][0], os.cpu_count()))
     if any(n - grown > 1 for n, grown, _ in tables) or not any(n == 1 for n, _, _ in tables):
         raise AssertionError("the node's samples made more than one process-table call "
                              f"beside those NVML answered with a grown table: {tables}")
@@ -2958,6 +3567,9 @@ def phase_drills(dev, uuid: str, hwcheck_probe: dict) -> None:
     t_phase = time.monotonic()
     card = phase_drills_probe(dev, uuid, hwcheck_probe)
     libtpu = phase_drills_libtpu()
+    thread_rss = json.loads(subprocess.run(
+        [sys.executable, "-c", THREAD_RSS_BOOTSTRAP, str(THREAD_RSS_THREADS)],
+        capture_output=True, text=True, timeout=60, check=True).stdout)
     runs: list = []
     errors: list = []
 
@@ -2988,7 +3600,7 @@ def phase_drills(dev, uuid: str, hwcheck_probe: dict) -> None:
                 break
     emit("drills", seconds=time.monotonic() - t_phase, groups_seconds=groups_s,
          drills_seconds=time.monotonic() - t_drills, runs=len(runs), card_minor=card["minor"],
-         libtpu_grpc=libtpu["grpc_installed"])
+         libtpu_grpc=libtpu["grpc_installed"], thread_rss=thread_rss)
     if errors:
         raise errors[0]
 
@@ -3793,6 +4405,106 @@ def phase_capture(kind: str) -> dict:
     return manifest
 
 
+def run_budget_check(tmp: str, module: str, args: tuple) -> tuple:
+    """``python -m tpu_pod_exporter_torch.<module> *args`` from the repo's
+    root, the values of its state flags and TMPDIR in a new directory under
+    ``tmp``: (exit code, stdout then stderr, seconds)."""
+    import tempfile
+
+    state = Path(tempfile.mkdtemp(dir=tmp))
+    argv = [str(state / a) if i and args[i - 1] in BUDGET_STATE_FLAGS else a
+            for i, a in enumerate(args)]
+    t0 = time.monotonic()
+    proc = run_port(module, *argv, timeout=BUDGET_TIMEOUT_S,
+                    env=dict(os.environ, TMPDIR=str(state)))
+    return proc.returncode, proc.stdout + proc.stderr, time.monotonic() - t0
+
+
+def egress_overhead(text: str) -> float | None:
+    """The egress demo's wedged-receiver p99s against its egress-off
+    baseline, in per cent of what its --perf-budget bounds: it passes while
+    (wedged - 2 ms) / baseline - 1 is within the budget for both the scrape
+    and the poll. The larger of the two."""
+    base = re.search(r"baseline: scrape p99 ([\d.]+)ms, poll p99 ([\d.]+)ms", text)
+    wedged = re.search(r"during wedge: scrape p99 ([\d.]+)ms, poll p99 ([\d.]+)ms", text)
+    if base is None or wedged is None:
+        return None
+    return max(100.0 * ((float(w) - 2.0) / float(b) - 1.0)
+               for b, w in zip(base.groups(), wedged.groups()))
+
+
+def budget_value(check: dict, text: str) -> float | None:
+    """A timing check's measured value, read from its output."""
+    if check["value"] is None:
+        return egress_overhead(text)
+    match = re.search(check["value"], text)
+    return None if match is None else float(match[1])
+
+
+def budget_verdict(rc: int, text: str) -> str | None:
+    """"ok" for a run that exited 0; "timing miss" for one that failed on
+    its own budget line alone; None for any other failure, or a traceback."""
+    if "Traceback (most recent call last)" in text:
+        return None
+    if rc == 0:
+        return "ok"
+    fails = [ln for ln in text.splitlines() if ln.startswith("FAIL") or "FAILED" in ln]
+    if rc == 1 and fails and all(BUDGET_MISS.search(ln) for ln in fails):
+        return "timing miss"
+    return None
+
+
+def phase_budgets(seconds: float) -> dict:
+    """Phase 19: the Makefile's host checks against the port, the card
+    idle, the timing checks' repeats only while they fit in ``seconds``.
+    Returns each timing check's median by target."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    deadline = t_phase + seconds
+    runs: dict = {check["target"]: [] for check in BUDGET_TIMING}
+
+    def run(check: dict) -> None:
+        rc, out, took = run_budget_check(tmp, check["module"], check["args"])
+        record = {"rc": rc, "seconds": took, "value": budget_value(check, out),
+                  "verdict": budget_verdict(rc, out)}
+        runs[check["target"]].append(record)
+        if record["verdict"] is None or record["value"] is None:
+            raise AssertionError(f"budgets: {check['target']} {runs[check['target']]}\n"
+                                 f"{out[-3000:]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for target, module, args, ok_text in BUDGET_FUNCTIONAL:
+            rc, out, took = run_budget_check(tmp, module, args)
+            ok_line = next((ln.strip() for ln in out.splitlines() if ok_text in ln), None)
+            emit("budget", target=target, kind="functional", rc=rc, seconds=took,
+                 ok_line=ok_line)
+            if rc != 0 or ok_line is None:
+                raise AssertionError(f"budgets: {target} rc={rc}, want 0 and {ok_text!r}\n"
+                                     f"{out[-3000:]}")
+        for check in BUDGET_TIMING:
+            run(check)
+        for check in sorted(BUDGET_TIMING, key=lambda c: -runs[c["target"]][0]["seconds"]):
+            cost = runs[check["target"]][0]["seconds"]
+            while (len(runs[check["target"]]) < check["runs"]
+                   and time.monotonic() + cost <= deadline):
+                run(check)
+    medians = {}
+    for check in BUDGET_TIMING:
+        done = runs[check["target"]]
+        median = medians[check["target"]] = statistics.median(r["value"] for r in done)
+        emit("budget", target=check["target"], kind="timing", unit=check["unit"], runs=done,
+             runs_planned=check["runs"], median=median, budgets=check["budgets"],
+             median_meets={name: median <= budget for name, budget in check["budgets"].items()},
+             card=card_line())
+    misses = sum(r["verdict"] == "timing miss" for done in runs.values() for r in done)
+    emit("budgets", seconds=time.monotonic() - t_phase, seconds_allowed=seconds,
+         checks=len(BUDGET_FUNCTIONAL) + len(BUDGET_TIMING), timing_misses=misses,
+         repeats_cut=[c["target"] for c in BUDGET_TIMING
+                      if len(runs[c["target"]]) < c["runs"]], card=card_line())
+    return medians
+
+
 def main() -> int:
     from tpu_pod_exporter_torch import hwcheck, nativelib
     from tpu_pod_exporter_torch.kernels import online_softmax as osm
@@ -3856,6 +4568,7 @@ def main() -> int:
     lint = phase_lint(uuid)
     deploy = phase_deploy(dev, tm, hwcheck)
     phase_capture(kind)
+    phase_budgets(SCRIPT_TARGET_S - SCRIPT_TAIL_S - (time.monotonic() - STARTED))
 
     # Launches on the main paths: the closed loop, the training run, the
     # collective programs, the NVML closed loop, the node state phase, the
@@ -3893,6 +4606,7 @@ def main() -> int:
         record.update(launches=sum(by_path[kernel].values()),
                       launches_by_path=by_path[kernel], **records[kernel])
     faulthandler.cancel_dump_traceback_later()
+    emit("script", seconds=time.monotonic() - STARTED, target_s=SCRIPT_TARGET_S)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

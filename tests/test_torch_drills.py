@@ -11,10 +11,12 @@ the ctypes binding over a stand-in library.
 """
 
 import dataclasses
+import inspect
 import json
 import random
 import subprocess
 import sys
+import threading
 import time
 import pytest
 
@@ -137,6 +139,71 @@ def test_store_continuity_slack_is_one_lost_round_each_side(lost):
     if lost == (3,):
         (jax_hole,) = [p for p in _continuity_problems(JaxRun, pts) if "hole" in p]
         assert "6.8s hole" in jax_hole and "allowed 5.5s" in jax_hole
+
+
+QUERY_POOLS = ("tpu-root-query", "tpu-fleet-query")
+
+
+@pytest.mark.parametrize("name", ["mem_pressure", "store_continuity"])
+def test_rss_baseline_holds_the_query_pools_workers(name, tmp_path, quiet_logs, monkeypatch):
+    """The leak bound's baseline is read once the query pools have started
+    their workers. A pool keeps every worker its first fan-out starts:
+    where that fan-out came after the baseline (mem_pressure's dashboard
+    traffic, store_continuity's boundary query), the workers' stacks
+    counted as growth, 136 threads at 120 targets and 4 shards. At the
+    baseline read the root's pool and every leaf's have workers; at the
+    end read they hold no more than the pools' caps."""
+    from tpu_pod_exporter_torch import utils
+    from tpu_pod_exporter_torch.fleet import FleetQueryPlane
+    from tpu_pod_exporter_torch.loadgen.scenario import run_scenarios
+
+    reads = []
+    rss = utils.process_rss_bytes
+
+    def counting_rss():
+        if sys._getframe(1).f_code.co_name in ("_check_tick", "_finish"):
+            names = [t.name for t in threading.enumerate()]
+            reads.append({pool: sum(n.startswith(pool + "_") for n in names)
+                          for pool in QUERY_POOLS})
+        return rss()
+
+    monkeypatch.setattr(utils, "process_rss_bytes", counting_rss)
+    summary = run_scenarios([name], 8, 2, 1, str(tmp_path), seed=7)
+    assert summary["ok"], summary["scenarios"][name]
+    baseline, end = reads[0], reads[-1]
+    leaves = 4  # 2 shards, a leaf and its twin each
+    cap = inspect.signature(FleetQueryPlane).parameters["max_workers"].default
+    assert baseline["tpu-root-query"] >= 1 and baseline["tpu-fleet-query"] >= leaves, reads
+    assert end["tpu-root-query"] <= leaves and end["tpu-fleet-query"] <= leaves * cap, reads
+
+
+def test_memory_bootstrap_prints_the_leak_bounds_two_reads(tmp_path):
+    """Phase 15's memory wrapper prints, beside its start and exit lines,
+    the threads and RSS at the scenario's baseline read and its end read."""
+    import chip_smoke
+
+    proc = subprocess.run(
+        [sys.executable, "-c", chip_smoke.DRILL_MEMORY_BOOTSTRAP, "loadgen.scenario",
+         "--scenarios", "store_continuity", "--targets", "8", "--shards", "1",
+         "--state-root", str(tmp_path / "state")],
+        cwd=chip_smoke.REPO, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = {doc["memory"]: doc for doc in map(json.loads, (
+        ln for ln in proc.stdout.splitlines() if ln.startswith('{"memory"')))}
+    assert set(lines) == {"start", "exit", "leak_reads"}
+    baseline, end = lines["leak_reads"]["reads"]
+    assert baseline["threads"] > 1 and baseline["rss_bytes"] > 0
+    assert end["threads"] > 1 and end["rss_bytes"] > 0
+
+
+def test_thread_rss_bootstrap_measures_idle_threads():
+    import chip_smoke
+
+    proc = subprocess.run([sys.executable, "-c", chip_smoke.THREAD_RSS_BOOTSTRAP, "8"],
+                          capture_output=True, text=True, timeout=60, check=True)
+    doc = json.loads(proc.stdout)
+    assert doc["threads"] == 8 and doc["rss_bytes_before"] > 0
+    assert doc["bytes_a_thread"] == (doc["rss_bytes_after"] - doc["rss_bytes_before"]) / 8
 
 
 def test_storm_child_reports_the_in_process_storm_stats():

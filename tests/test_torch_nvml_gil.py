@@ -3,7 +3,8 @@
 A stub ``libnvidia-ml`` built here with the C compiler exports the ten
 symbols the binding binds (``_SIGNATURES`` and the ``_v3`` process table);
 each call sleeps 50 us, as a driver call does, and the memory read can be
-wedged until the test lets it go, as a driver or card fault wedges it.
+wedged until the test lets it go, as a driver or card fault wedges it. In
+another process, environment variables slow or fail the memory read.
 Loaded through the port's own ``CtypesNvmlDriver`` (``LIBRARY`` pointed at
 the stub), one ``NvmlBackend.sample()`` of its one card makes 8 calls.
 
@@ -31,6 +32,7 @@ from tpu_pod_exporter_torch.config import ExporterConfig
 GIB = 1 << 30
 STUB_SOURCE = r"""
 #include <stddef.h>
+#include <stdlib.h>
 #include <string.h>
 #include <unistd.h>
 
@@ -61,8 +63,17 @@ int nvmlDeviceGetUUID(void *h, char *buf, unsigned int n) {
   CALL(); strncpy(buf, "GPU-stub-0", n); return 0;
 }
 int nvmlDeviceGetMinorNumber(void *h, unsigned int *minor) { CALL(); *minor = 3; return 0; }
+/* For a process that cannot call stub_wedge: every STUB_NVML_SLOW_EVERY-th
+ * memory read takes STUB_NVML_SLOW_MS ms more, and the STUB_NVML_FAIL_AT-th
+ * answers NVML_ERROR_GPU_IS_LOST (15). */
+static int memory_reads = 0;
+static int env_int(const char *name) { const char *v = getenv(name); return v ? atoi(v) : 0; }
 int nvmlDeviceGetMemoryInfo(void *h, mem_t *m) {
   CALL();
+  int n = ++memory_reads;
+  if (n == env_int("STUB_NVML_FAIL_AT")) return 15;
+  if (env_int("STUB_NVML_SLOW_EVERY") && n % env_int("STUB_NVML_SLOW_EVERY") == 0)
+    usleep(1000 * env_int("STUB_NVML_SLOW_MS"));
   if (wedged) {
     wedged_calls++;
     blocked = 1;
@@ -268,3 +279,202 @@ def test_timing_bootstrap_counts_one_process_table_call_a_sample(stub):
     calls, grown, samples = row
     assert (calls, grown) == (1, 0) and samples >= 2
     assert line["nvml_call_times"]["sample"]["calls"] == samples
+
+
+@pytest.fixture(scope="module")
+def nvml_probe(tmp_path_factory, stub_library):
+    # Phases 12 and 14's C probe, built from chip_smoke's source as they build it.
+    import chip_smoke
+
+    if shutil.which("gcc") is None:
+        pytest.skip("needs gcc to build the NVML probe")
+    return chip_smoke.build_nvml_probe(tmp_path_factory.mktemp("nvml-probe"))
+
+
+def _probe(binary, library, seconds=0.5, period_ms=10.0, **env):
+    import os
+
+    import chip_smoke
+
+    t0 = time.monotonic()
+    proc = subprocess.run(chip_smoke.probe_argv(binary, period_ms, seconds, library),
+                          capture_output=True, text=True, timeout=WAIT_S,
+                          env={**os.environ, **{k: str(v) for k, v in env.items()}})
+    return proc, t0, time.monotonic()
+
+
+def _port_sample_order() -> list:
+    # The symbols one NvmlBackend.sample() calls through the binding, in order.
+    driver = CtypesNvmlDriver()
+    order = []
+
+    def recorded(name, fn):
+        def call(*args):
+            order.append(name)
+            return fn(*args)
+        return call
+
+    driver._fns = {name: recorded(name, fn) for name, fn in driver._fns.items()}
+    driver._procs = recorded(driver.process_symbol, driver._procs)
+    backend = NvmlBackend(driver=driver)
+    try:
+        backend.sample()  # nvmlInit first
+        del order[:]
+        backend.sample()
+        return list(order)
+    finally:
+        backend.close()
+
+
+def test_probe_makes_a_samples_calls_in_the_ports_order(stub, nvml_probe):
+    import chip_smoke
+
+    proc, _, _ = _probe(nvml_probe, stub)
+    line = chip_smoke.probe_line(proc.returncode, proc.stdout, proc.stderr)
+    order = _port_sample_order()
+    assert len(order) == 8
+    assert line["order"] == order
+    assert line["calls_per_sample"] == 8.0 and line["grown"] == 0
+    assert line["period_ms"] == 10.0 and line["limit_ms"] == chip_smoke.DEVICE_READ_LIMIT_MS
+    assert line["slow_call_ms"] == chip_smoke.PROBE_SLOW_CALL_MS
+    # A fixed 10 ms grid over 0.5 s: 50 slots, a few lost to a loaded host.
+    assert 25 <= line["samples"] + line["late"] <= 50
+    assert set(line["calls"]) == set(order)
+    for name, times in line["calls"].items():
+        assert times["calls"] == line["samples"], name
+        assert 0 < times["wall_ms"]["median"] <= times["wall_ms"]["p99"] <= times["wall_ms"]["max"]
+        assert times["cpu_ms"]["median"] >= 0
+    assert line["sample"]["calls"] == line["samples"]
+    assert line["over_limit"] == len(line["slow_samples"])
+
+
+def test_probe_lists_every_slow_call_with_its_monotonic_start(stub, nvml_probe):
+    import chip_smoke
+
+    proc, t0, t1 = _probe(nvml_probe, stub, STUB_NVML_SLOW_EVERY=5, STUB_NVML_SLOW_MS=15)
+    line = chip_smoke.probe_line(proc.returncode, proc.stdout, proc.stderr)
+    slow = [c for c in line["slow_calls"]
+            if c["call"] == "nvmlDeviceGetMemoryInfo" and c["wall_ms"] >= 15.0]
+    # One memory read a sample; every fifth took 15 ms more.
+    assert len(slow) == line["samples"] // 5 >= 3
+    assert line["slow_calls_total"] == len(line["slow_calls"])
+    for call in slow:
+        assert t0 <= call["start_s"] <= t1
+    # Each slow read makes its sample slow, and overruns the 10 ms slot.
+    assert line["over_limit"] >= len(slow) and line["late"] >= 1
+    for sample in line["slow_samples"]:
+        assert sample["wall_ms"] > chip_smoke.DEVICE_READ_LIMIT_MS
+        assert t0 <= sample["start_s"] <= t1
+    starts = [s["start_s"] for s in line["slow_samples"]]
+    for call in slow:
+        assert any(s <= call["start_s"] <= s + 0.05 for s in starts)
+    assert line["calls"]["nvmlDeviceGetMemoryInfo"]["wall_ms"]["max"] >= 15.0
+
+
+def test_probe_exits_non_zero_on_an_nvml_error(stub, nvml_probe):
+    import chip_smoke
+
+    proc, _, _ = _probe(nvml_probe, stub, STUB_NVML_FAIL_AT=3)
+    assert proc.returncode == 1
+    assert "nvmlDeviceGetMemoryInfo returned 15" in proc.stderr
+    assert '{"probe"' not in proc.stdout
+    with pytest.raises(AssertionError, match="exited 1"):
+        chip_smoke.probe_line(proc.returncode, proc.stdout, proc.stderr)
+
+
+def test_probe_stops_on_sigterm_and_prints_its_line(stub, nvml_probe):
+    import signal
+
+    import chip_smoke
+
+    proc = subprocess.Popen(chip_smoke.probe_argv(nvml_probe, 10.0, 60.0, stub),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    time.sleep(1.0)
+    proc.send_signal(signal.SIGTERM)
+    out, err = proc.communicate(timeout=WAIT_S)
+    line = chip_smoke.probe_line(proc.returncode, out, err)
+    assert 5 <= line["samples"] and line["seconds"] < 10
+
+
+def test_timing_bootstrap_stamps_slow_samples_with_a_monotonic_start(stub):
+    import json
+    import os
+    import signal
+    import sys
+
+    import chip_smoke
+
+    code = (f"from tpu_pod_exporter_torch.backend import nvml_ctypes\n"
+            f"nvml_ctypes.LIBRARY = {stub!r}\n" + chip_smoke.NVML_TIMING_BOOTSTRAP)
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, "--host", "127.0.0.1", "--port", "0",
+         "--interval-s", "0.05", "--log-level", "warning", "--backend", "nvml",
+         "--attribution", "none"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=chip_smoke.REPO,
+        env={**os.environ, "STUB_NVML_SLOW_EVERY": "2", "STUB_NVML_SLOW_MS": "15"})
+    time.sleep(1.5)
+    proc.send_signal(signal.SIGTERM)
+    out, err = proc.communicate(timeout=WAIT_S)
+    t1 = time.monotonic()
+    assert proc.returncode == 0, err
+    (line,) = [json.loads(x) for x in out.splitlines() if x.startswith('{"nvml_call_times"')]
+    slow = [s for s in line["slow_samples"]
+            if any(c[0] == "nvmlDeviceGetMemoryInfo" and c[1] >= 15.0 for c in s["calls"])]
+    assert len(slow) >= 3
+    for sample in line["slow_samples"]:
+        assert t0 <= sample["start_s"] <= t1
+        for name, wall, cpu, start in sample["calls"]:
+            assert sample["start_s"] <= start <= sample["start_s"] + sample["wall_ms"] / 1e3
+            assert 0 <= cpu and wall <= sample["wall_ms"]
+
+
+def test_stall_timeline_puts_both_processes_on_one_clock():
+    # Phase 14's read-out on made-up samples: 8 CPUs, 100 ticks a second.
+    import os
+
+    import chip_smoke
+
+    tick = os.sysconf("SC_CLK_TCK")
+    # (monotonic s, /proc/stat busy, total, load1, tasks, every process's ticks)
+    readings = [(100.0 + i / 10, 0, 0, 0.0, "0/0", i * 0.4 * tick / 10 * 8) for i in range(11)]
+    exporter = [{"start_s": 100.25, "wall_ms": 30.0, "cpu_ms": 20.0,
+                 "calls": [["nvmlDeviceGetCount_v2", 0.1, 0.0, 100.25],
+                           ["nvmlDeviceGetMemoryInfo", 29.0, 20.0, 100.2502]]},
+                {"start_s": 100.75, "wall_ms": 12.0, "cpu_ms": 10.0, "calls": []}]
+    probe = {"over_limit": 1, "slow_calls_total": 2,
+             "slow_samples": [{"start_s": 100.251, "wall_ms": 29.5, "cpu_ms": 20.0}],
+             "slow_calls": [{"call": "nvmlDeviceGetMemoryInfo", "start_s": 100.251,
+                             "wall_ms": 29.0, "cpu_ms": 20.0},
+                            {"call": "nvmlDeviceGetUUID", "start_s": 100.5, "wall_ms": 3.0,
+                             "cpu_ms": 0.0}]}
+    line = chip_smoke.stall_timeline(exporter, {"probe_10ms": probe}, readings, 100.0, 8)
+    assert [(e["who"], round(e["t_s"], 3)) for e in line["events"]] == [
+        ("exporter", 0.25), ("probe_10ms", 0.251), ("exporter", 0.75)]
+    first, probe_event, last = line["events"]
+    assert first["held_by"] == ["nvmlDeviceGetMemoryInfo", 29.0]
+    assert first["probe_calls_over_slow"] == [
+        ["probe_10ms", "nvmlDeviceGetMemoryInfo", pytest.approx(0.251), 29.0]]
+    assert probe_event["probe_calls_over_slow"] == []  # its own calls are not listed
+    assert last["probe_calls_over_slow"] == [] and "held_by" not in last
+    assert first["process_busy_share"] == pytest.approx(0.4)
+    assert first["stat_busy_share"] is None  # gVisor's /proc/stat: all zeros
+    assert line["exporter_slow"] == 2 and line["exporter_slow_beside_probe_call"] == 1
+    assert line["probe_slow"] == {"probe_10ms": 1}
+    assert line["process_busy_share"]["median"] == pytest.approx(0.4)
+    assert line["cpus"] == 8 and line["readings"] == 11
+
+
+def test_host_cpu_reads_the_proc_files_on_a_clock():
+    import chip_smoke
+
+    host = chip_smoke.HostCpu()
+    host.start()
+    time.sleep(0.35)
+    host.close()
+    host.close()  # closing twice is harmless
+    assert len(host.readings) >= 3
+    times = [r[0] for r in host.readings]
+    assert times == sorted(times)
+    for t, busy, total, load1, tasks, processes in host.readings:
+        assert 0 <= busy <= total and load1 >= 0 and "/" in tasks and processes > 0

@@ -873,6 +873,7 @@ class _Run:
     def run(self) -> dict:
         result: dict = {"scenario": self.scn.name,
                         "timeline": self.scn.timeline, "ok": False}
+        self._warm_query_pools()
         self.start_wall = time.time()
         try:
             for r in range(self.rounds):
@@ -929,6 +930,20 @@ class _Run:
             result["trace_ticks"] = len(self.trace)
             result["invariants_armed"] = sorted(self.invariants_armed)
             self._close()
+
+    def _warm_query_pools(self) -> None:
+        """One two-level query before round 0, as a dashboard behind the
+        root asks. The query pools (the root's, and one a leaf) start
+        their workers on their first fan-out and keep them: a first
+        fan-out after the RSS baseline (mem_pressure's dashboard traffic,
+        store_continuity's boundary query) put 136 idle workers' stacks
+        into the leak bound at 120 targets and 4 shards, and where a
+        thread's stack costs up to 2 MiB of RSS (a gVisor host) they
+        alone filled most of it."""
+        try:
+            self.plane.window_stats("tpu_hbm_used_bytes", window_s=30.0)
+        except Exception:  # noqa: BLE001 — warm-up traffic, not an assertion
+            pass
 
     # ---------------------------------------------------------- tick checks
 
