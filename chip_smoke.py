@@ -1004,15 +1004,15 @@ int main(int argc, char **argv) {
   double init_ms = (now_s(CLOCK_MONOTONIC) - t_init) * 1e3;
 
   /* Samples on a fixed grid from the first: a sample that overruns its
-   * period skips the slots it covered, and they are counted as late. */
+   * period skips the slots it covered, and those due before the end are
+   * counted as late. */
   double first = now_s(CLOCK_MONOTONIC), end = first + seconds, last = first;
   size_t late = 0;
   for (long k = 0; !stopping; k++) {
     double due = first + k * period_s, t = now_s(CLOCK_MONOTONIC);
     if (k > 0 && due < t) {
-      long skipped = (long)ceil((t - due) / period_s);
-      k += skipped;
-      late += skipped;
+      for (long skipped = (long)ceil((t - due) / period_s); skipped > 0; skipped--, k++)
+        if (first + k * period_s < end) late++;
       due = first + k * period_s;
     }
     if (due >= end) break;

@@ -1616,3 +1616,103 @@ class TestTargetCircuitBreaker:
             )
         finally:
             agg.close()
+
+
+def _families(text: str) -> dict[tuple, float]:
+    """{(name, sorted label items): value} of an exposition."""
+    return {(s.name, tuple(sorted(s.labels.items()))): s.value
+            for s in parse_exposition(text)}
+
+
+def _hist_total(fams: dict, name: str, suffix: str, **match: str) -> float:
+    return sum(v for (n, labels), v in fams.items()
+               if n == name + suffix and all(dict(labels).get(k) == x
+                                             for k, x in match.items()))
+
+
+class TestRoundPhasesAndFetchStages:
+    """A round's phases (fetch, parse, fold, publish) and each successful
+    default_fetch's stages (headers, body, gunzip, decode), over a local
+    exporter server that answers gzip."""
+
+    ROUNDS = 3
+
+    @pytest.mark.parametrize("fetch_kind", ["default_fetch", "timed_wrapper", "injected"])
+    def test_phases_and_stages_fit_the_round(self, fetch_kind):
+        import time
+
+        from tpu_pod_exporter_torch.aggregate import FETCH_STAGES, default_fetch
+
+        spans = []
+
+        def timed_fetch(target, timeout_s, traceparent=None):
+            # Shaped like the benchmark's wrapper of default_fetch.
+            t0 = time.perf_counter()
+            try:
+                return default_fetch(target, timeout_s, traceparent=traceparent)
+            finally:
+                spans.append((t0, time.perf_counter()))
+
+        # "injected": a two-argument fetch (no traceparent) that calls
+        # default_fetch on the pool's thread, so its stages still reach the
+        # round through the thread-local record.
+        fetch = {"default_fetch": default_fetch, "timed_wrapper": timed_fetch,
+                 "injected": lambda target, timeout_s: default_fetch(target, timeout_s)}
+        servers = []
+        try:
+            for w in range(2):
+                store = SnapshotStore()
+                topo = HostTopology(accelerator="v5p-64", slice_name="slice-a",
+                                    host=f"host-{w}", worker_id=str(w))
+                Collector(FakeBackend(chips=4), FakeAttribution(), store,
+                          topology=topo).poll_once()
+                server = MetricsServer(store, host="127.0.0.1", port=0)
+                server.start()
+                servers.append(server)
+            targets = tuple(f"127.0.0.1:{s.port}" for s in servers)
+            agg_store = SnapshotStore()
+            agg = SliceAggregator(targets, agg_store, fetch=fetch[fetch_kind])
+            walls = []
+            try:
+                for _ in range(self.ROUNDS):
+                    t0 = time.perf_counter()
+                    agg.poll_once()
+                    walls.append(time.perf_counter() - t0)
+            finally:
+                agg.close()
+        finally:
+            for server in servers:
+                server.stop()
+        fams = _families(agg_store.current().encode().decode())
+        name = "tpu_aggregator_round_phase_seconds"
+        # Phases are observed after the swap, with the round histogram: the
+        # last exposition holds every round but the last.
+        for phase in ("fetch", "parse", "fold", "publish"):
+            assert _hist_total(fams, name, "_count", phase=phase) == self.ROUNDS - 1
+        phases = sum(_hist_total(fams, name, "_sum", phase=p)
+                     for p in ("fetch", "parse", "fold", "publish"))
+        assert 0.0 < phases <= sum(walls[:-1])
+        assert _hist_total(fams, "tpu_aggregator_round_seconds", "_count") == self.ROUNDS - 1
+        fetched = self.ROUNDS * len(targets)
+        assert _hist_total(fams, "tpu_aggregator_target_scrape_seconds", "_count") == fetched
+        stage = "tpu_aggregator_fetch_stage_seconds"
+        for s in FETCH_STAGES:
+            assert _hist_total(fams, stage, "_count", stage=s) == fetched
+        stages = sum(_hist_total(fams, stage, "_sum", stage=s) for s in FETCH_STAGES)
+        assert 0.0 < stages <= _hist_total(fams, "tpu_aggregator_target_scrape_seconds", "_sum")
+        assert _hist_total(fams, stage, "_sum", stage="gunzip") > 0.0  # the servers gzip
+
+    def test_a_fetch_that_skips_default_fetch_observes_no_stage(self):
+        pages = {f"h{w}:8000": make_host_text(w) for w in range(2)}
+        store = SnapshotStore()
+        agg = SliceAggregator(tuple(pages), store, fetch=StaticFetch(pages))
+        try:
+            agg.poll_once()
+            agg.poll_once()
+        finally:
+            agg.close()
+        fams = _families(store.current().encode().decode())
+        assert _hist_total(fams, "tpu_aggregator_fetch_stage_seconds", "_count") == 0.0
+        assert _hist_total(fams, "tpu_aggregator_target_scrape_seconds", "_count") == 4.0
+        assert _hist_total(fams, "tpu_aggregator_round_phase_seconds", "_count",
+                           phase="parse") == 1.0

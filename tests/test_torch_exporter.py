@@ -10,6 +10,8 @@ both apps the same way.
 """
 
 import json
+import re
+import time
 import urllib.error
 import urllib.request
 
@@ -34,6 +36,47 @@ VOLATILE_FAMILIES = (
     "tpu_exporter_cpu_seconds_total",
     "tpu_exporter_rss_bytes",
 )
+
+# The port's own instrumentation families, which the JAX package (kept as
+# the reference, unedited) does not serve: the server loop's timer lag, the
+# poll's device-read instants, the aggregator's round phases and fetch
+# stages. The
+# line-for-line comparisons against the JAX package drop them from the
+# port's body first (``without_port_instrumentation``); every other line
+# is still compared in order and value.
+PORT_INSTRUMENTATION_FAMILIES = (
+    "tpu_exporter_server_loop_lag_seconds",
+    "tpu_exporter_last_device_read_timestamp_seconds",
+    "tpu_aggregator_round_phase_seconds",
+    "tpu_aggregator_fetch_stage_seconds",
+)
+
+
+def _line_family(line: str) -> str:
+    """The family an exposition line belongs to (a histogram's _bucket,
+    _count and _sum lines to their parent)."""
+    if line.startswith("# HELP ") or line.startswith("# TYPE "):
+        return line.split(" ", 3)[2]
+    name = re.split(r"[{ ]", line, maxsplit=1)[0]
+    return re.sub(r"_(bucket|count|sum)$", "", name)
+
+
+def without_port_instrumentation(body: str) -> str:
+    """``body`` without the lines (samples, HELP and TYPE) of
+    PORT_INSTRUMENTATION_FAMILIES, its ``tpu_exporter_series`` count less
+    the samples dropped."""
+    kept, dropped = [], 0
+    for line in body.splitlines(keepends=True):
+        if _line_family(line) not in PORT_INSTRUMENTATION_FAMILIES:
+            kept.append(line)
+        elif not line.startswith("#"):
+            dropped += 1
+    for i, line in enumerate(kept):
+        if line.startswith("tpu_exporter_series "):
+            count = float(line.split(" ", 1)[1]) - dropped
+            kept[i] = f"tpu_exporter_series {count:g}" + line[len(line.rstrip("\n")):]
+    return "".join(kept)
+
 
 FAKE_CONFIG = dict(port=0, host="127.0.0.1", backend="fake",
                    fake_chips=4, attribution="none", accelerator="v4-8")
@@ -81,7 +124,7 @@ class TestMetricsParity:
             _get(jax_base, "/metrics"), _get(torch_base, "/metrics"))
         assert jax_status == torch_status == 200
         jax_lines = jax_body.decode().splitlines()
-        torch_lines = torch_body.decode().splitlines()
+        torch_lines = without_port_instrumentation(torch_body.decode()).splitlines()
         assert len(jax_lines) == len(torch_lines) > 100
         for want, got in zip(jax_lines, torch_lines):
             want_key, want_value = _split(want)
@@ -107,7 +150,8 @@ class TestMetricsParity:
         finally:
             for app in apps:
                 app.stop()
-        jax_lines, torch_lines = jax_body.splitlines(), torch_body.splitlines()
+        jax_lines = jax_body.splitlines()
+        torch_lines = without_port_instrumentation(torch_body).splitlines()
         assert len(jax_lines) == len(torch_lines) > 100
         for want, got in zip(jax_lines, torch_lines):
             want_key, want_value = _split(want)
@@ -133,6 +177,43 @@ class TestMetricsParity:
         status, body = _get(torch_base, path)
         assert status == _get(jax_base, path)[0] == 200
         assert json.loads(body)["status"] == "ok"
+
+
+@pytest.fixture(scope="module")
+def instrumented_bodies():
+    """{family prefix: body}: the port's exporter body (scraped, then
+    polled) and the body of a port aggregator that fetched it with
+    default_fetch."""
+    from tpu_pod_exporter_torch.aggregate import SliceAggregator
+    from tpu_pod_exporter_torch.metrics import SnapshotStore
+
+    app = tapp.ExporterApp(ExporterConfig(**FAKE_CONFIG))
+    app.collector.poll_once()
+    app.server.start()
+    agg_store = SnapshotStore()
+    agg = SliceAggregator((f"127.0.0.1:{app.port}",), agg_store)
+    try:
+        for _ in range(2):
+            agg.poll_once()
+        time.sleep(0.25)  # the loop's lag probe fires every 100 ms
+        app.collector.poll_once()
+        exporter = _get(f"http://127.0.0.1:{app.port}", "/metrics")[1].decode()
+    finally:
+        agg.close()
+        app.stop()
+    return {"tpu_exporter_": exporter,
+            "tpu_aggregator_": agg_store.current().encode().decode()}
+
+
+@pytest.mark.parametrize("family", PORT_INSTRUMENTATION_FAMILIES)
+def test_port_instrumentation_family_is_served(family, instrumented_bodies):
+    """Each family the parity comparisons drop is in the port's own body,
+    typed and with samples."""
+    body = next(b for prefix, b in instrumented_bodies.items() if family.startswith(prefix))
+    assert f"\n# TYPE {family} " in body
+    samples = [line for line in body.splitlines()
+               if not line.startswith("#") and _line_family(line) == family]
+    assert samples, family
 
 
 class TestHwcheckFake:

@@ -25,6 +25,7 @@ import time
 from pathlib import Path
 
 import pytest
+from test_torch_exporter import without_port_instrumentation
 
 from tpu_pod_exporter import aggregate as jax_aggregate
 from tpu_pod_exporter import alerting as jax_alerting
@@ -139,10 +140,14 @@ def _family(key: str) -> str:
 
 
 def assert_same_exposition(jax_body: str, port_body: str) -> int:
-    """Same lines in the same order, equal values outside VOLATILE_FAMILIES;
-    returns the number of sample lines compared."""
-    jax_lines = [_split(ln) for ln in jax_body.splitlines() if ln]
-    port_lines = [_split(ln) for ln in port_body.splitlines() if ln]
+    """Same lines in the same order, equal values outside VOLATILE_FAMILIES,
+    once the port's own instrumentation families are dropped (the JAX
+    package has none; a port body may stand on either side); returns the
+    number of sample lines compared."""
+    jax_lines = [_split(ln) for ln in without_port_instrumentation(jax_body).splitlines()
+                 if ln]
+    port_lines = [_split(ln) for ln in without_port_instrumentation(port_body).splitlines()
+                  if ln]
     assert [k for k, _ in jax_lines] == [k for k, _ in port_lines]
     compared = 0
     for (key, jv), (_, pv) in zip(jax_lines, port_lines):

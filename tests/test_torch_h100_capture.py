@@ -32,7 +32,12 @@ from pathlib import Path
 import pytest
 
 import chip_smoke
-from test_torch_exporter import VOLATILE_FAMILIES, _get, _split
+from test_torch_exporter import (
+    VOLATILE_FAMILIES,
+    _get,
+    _split,
+    without_port_instrumentation,
+)
 from test_torch_fleet_parity import assert_same_exposition
 from test_torch_nvml import plain
 from tpu_pod_exporter import aggregate as jax_aggregate
@@ -291,7 +296,7 @@ class TestProbe:
                 bodies.append(text.decode())
             finally:
                 app.stop()
-        want, got = (b.splitlines() for b in bodies)
+        want, got = bodies[0].splitlines(), without_port_instrumentation(bodies[1]).splitlines()
         assert len(want) == len(got) > 100
         for want_line, got_line in zip(want, got):
             want_key, want_value = _split(want_line)

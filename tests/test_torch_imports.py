@@ -21,7 +21,7 @@ REFERENCE = REPO / "tpu_pod_exporter"
 
 # Copied modules whose text equals the JAX package's after the rename.
 VERBATIM = (
-    "__main__.py", "aggregate.py", "analysis/diagnostics.py",
+    "__main__.py", "analysis/diagnostics.py",
     "analysis/engine.py", "attribution/__init__.py",
     "attribution/fake.py",
     "attribution/checkpoint.py", "attribution/podresources.py",
@@ -30,10 +30,10 @@ VERBATIM = (
     "attribution/uidmap.py",
     "backend/__init__.py", "backend/fake.py", "backend/recorded.py",
     "backend/proto/__init__.py", "backend/proto/tpu_metric_service_pb2.py",
-    "chaos.py", "collector.py",
+    "chaos.py",
     "fuzz.py", "history.py",
     "metrics/__init__.py", "metrics/native.py", "metrics/parse.py",
-    "metrics/schema.py", "shard.py",
+    "shard.py",
     "supervisor.py", "topology.py", "utils.py", "version.py",
 )
 # Copied modules with a few lines changed beyond the rename:
@@ -56,8 +56,8 @@ EDITED = {
     # with g++ at first use into _build/, never the JAX package's .so.
     "nativelib.py": (4, 48),
     # --backend torch|nvml (jax refused), auto prefers NVML; the GPU scan
-    # prefixes.
-    "app.py": (12, 32),
+    # prefixes; the server's timing families reach the collector's snapshot.
+    "app.py": (12, 33),
     # The libtpu probe verbatim, beside probe_nvml and --runtime.
     "probe.py": (11, 127),
     # sample() reads the card's device nodes, not the tunnel's ports.
@@ -92,7 +92,19 @@ EDITED = {
     "metrics/registry.py": (1, 1),  # comment: no history reference
     "pressure.py": (1, 1),          # docstring: no history reference
     "trace.py": (1, 1),             # docstring: no history reference
-    "server.py": (3, 3),            # docstring and comment: no history reference
+    # Docstring and comment: no history reference; the loop's timer lag with
+    # a 100 ms probe timer, emit_timings.
+    "server.py": (5, 25),
+    # The poll's device-read instants, published beside its stamp; the
+    # server's timing families emitted into the snapshot.
+    "collector.py": (2, 20),
+    # default_fetch's stages on a thread-local record; the round's phases
+    # (fetch, parse, fold, publish), observed by _publish, and the fetch
+    # stages as histograms and as round-span attributes.
+    "aggregate.py": (4, 67),
+    # The port's instrumentation families: loop lag, device-read instants,
+    # round phases, fetch stages.
+    "metrics/schema.py": (0, 40),
     # --process-metrics scans /dev/nvidia<minor> for a GPU backend, as app.py
     # does (the reference walks /dev/accel and /dev/vfio whatever the backend);
     # the node's pods are joined under the GPU resource name for a GPU backend

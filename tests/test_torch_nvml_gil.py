@@ -348,6 +348,18 @@ def test_probe_makes_a_samples_calls_in_the_ports_order(stub, nvml_probe):
     assert line["over_limit"] == len(line["slow_samples"])
 
 
+def test_probe_accounts_each_slot_of_its_grid_once(stub, nvml_probe):
+    """Every sample takes over two of its 10 ms periods: each slot of the
+    0.5 s grid is either sampled or late, and the slots that the last
+    sample overran past the end do not count as late."""
+    import chip_smoke
+
+    proc, _, _ = _probe(nvml_probe, stub, STUB_NVML_SLOW_EVERY=1, STUB_NVML_SLOW_MS=25)
+    line = chip_smoke.probe_line(proc.returncode, proc.stdout, proc.stderr)
+    assert line["late"] >= line["samples"] > 0
+    assert line["samples"] + line["late"] == 50
+
+
 def test_probe_lists_every_slow_call_with_its_monotonic_start(stub, nvml_probe):
     import chip_smoke
 

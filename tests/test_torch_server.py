@@ -901,3 +901,68 @@ class TestWorkerPoolIdleReap:
         assert pool.threads == 0
         assert len(done) == 4
         pool.shutdown()
+
+
+def _timings(server) -> dict:
+    """The server's timing families as the collector would publish them:
+    {(name, stage label or None): value}."""
+    from tpu_pod_exporter_torch.metrics.parse import parse_exposition
+
+    b = SnapshotBuilder()
+    server.emit_timings(b)
+    return {(s.name, s.labels.get("stage")): s.value
+            for s in parse_exposition(b.build().encode().decode())}
+
+
+def _wait_until(predicate, timeout_s=5.0):
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(0.01)
+    return predicate()
+
+
+class TestScrapeTimings:
+    """How late the server's loop runs its due timers: its wait for the
+    interpreter, with or without kernel receive stamps."""
+
+    def test_idle_loop_samples_its_lag_about_ten_times_a_second(self):
+        import time
+
+        server = MetricsServer(SnapshotStore(), host="127.0.0.1", port=0)
+        server.start()
+        try:
+            count = ("tpu_exporter_server_loop_lag_seconds_count", None)
+            time.sleep(0.25)
+            n0, t0 = _timings(server)[count], time.monotonic()
+            time.sleep(1.0)
+            n1, t1 = _timings(server)[count], time.monotonic()
+            rate = (n1 - n0) / (t1 - t0)
+            assert 5.0 <= rate <= 12.0, rate
+            lag = _timings(server)[("tpu_exporter_server_loop_lag_seconds_sum", None)]
+            assert 0.0 <= lag / n1 < 0.1
+        finally:
+            server.stop()
+
+    @pytest.mark.parametrize("blocked_s", [0.15, 0.3])
+    def test_a_blocked_loop_observes_how_late_it_ran_its_timer(self, blocked_s):
+        """A callback that holds the loop past a timer's due instant makes
+        that timer's lag at least the time the loop was held beyond it."""
+        import threading
+        import time
+
+        server = MetricsServer(SnapshotStore(), host="127.0.0.1", port=0)
+        server.start()
+        try:
+            fired = threading.Event()
+            loop = server._loop
+            loop.call_soon(lambda: (loop.call_later(0.0, fired.set),
+                                    time.sleep(blocked_s)))
+            assert fired.wait(5)
+            got = _timings(server)
+            assert got[("tpu_exporter_server_loop_lag_seconds_sum", None)] >= blocked_s * 0.9
+        finally:
+            server.stop()

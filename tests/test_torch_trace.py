@@ -741,3 +741,120 @@ class TestDemoAndOverheadCli:
                    "--budget", "5.0"])
         assert rc == 0
         assert "overhead" in capsys.readouterr().out
+
+
+class TestDeviceReadInstants:
+    """The poll publishes, beside its stamp, the wall-clock instants just
+    before and after its device read."""
+
+    @pytest.mark.parametrize("traced,fail_at", [(False, None), (True, None), (False, 1)],
+                             ids=["untraced", "traced", "read_fails"])
+    def test_edges_lie_between_the_previous_stamp_and_the_polls_own(self, traced, fail_at):
+        """Also for a poll whose device read raises: its edges bound the
+        failed read."""
+        from tpu_pod_exporter_torch.metrics.parse import parse_exposition
+
+        store = SnapshotStore()
+        tracer = Tracer(TraceStore(), slow_poll_s=0.0) if traced else None
+        backend = FakeBackend(chips=2)
+        c = Collector(backend, FakeAttribution(), store, tracer=tracer)
+        previous = None
+        for i in range(3):
+            if i == fail_at:
+                backend.fail_next()
+            c.poll_once()
+            got = {(s.name, s.labels.get("edge")): s.value
+                   for s in parse_exposition(store.current().encode().decode())
+                   if s.name.startswith(("tpu_exporter_last_poll_timestamp_seconds",
+                                         "tpu_exporter_last_device_read_timestamp_seconds"))}
+            stamp = got[("tpu_exporter_last_poll_timestamp_seconds", None)]
+            start = got[("tpu_exporter_last_device_read_timestamp_seconds", "start")]
+            end = got[("tpu_exporter_last_device_read_timestamp_seconds", "end")]
+            assert start <= end <= stamp
+            if previous is not None:
+                assert previous < start
+            previous = stamp
+        if traced:
+            dev = next(s for s in tracer.store.last(1)[0].spans if s.name == "device_read")
+            assert dev.t0_wall <= start
+
+
+class TestRoundSpanTimings:
+    """The aggregator's round spans carry the fetch's stages and the
+    publish's phases."""
+
+    def test_scrape_and_publish_spans_carry_their_split(self):
+        from tpu_pod_exporter_torch.aggregate import FETCH_STAGES, SliceAggregator
+        from tpu_pod_exporter_torch.app import ExporterApp
+        from tpu_pod_exporter_torch.config import ExporterConfig
+
+        cfg = ExporterConfig(port=0, host="127.0.0.1", backend="fake",
+                             fake_chips=2, attribution="none",
+                             history_retention_s=0.0)
+        app = ExporterApp(cfg)
+        app.start()
+        agg = None
+        try:
+            ts = TraceStore()
+            agg = SliceAggregator((f"127.0.0.1:{app.port}",), SnapshotStore(),
+                                  tracer=Tracer(ts, slow_poll_s=0.0, root_name="round"))
+            agg.poll_once()
+            rt = ts.last(1)[0]
+            scrape = next(s for s in rt.spans if s.name == "scrape")
+            split = [scrape.attrs[f"{stage}_s"] for stage in FETCH_STAGES]
+            assert min(split) >= 0.0
+            assert sum(split) <= scrape.dur_s
+            publish = next(s for s in rt.spans if s.name == "publish")
+            phases = [publish.attrs[k] for k in ("parse_s", "fold_s", "build_s")]
+            assert min(phases) >= 0.0 and phases[0] > 0.0
+            assert sum(phases) <= publish.dur_s
+        finally:
+            if agg is not None:
+                agg.close()
+            app.stop()
+
+    def test_untraced_round_adds_no_span_and_still_observes(self):
+        from tpu_pod_exporter_torch.aggregate import SliceAggregator
+
+        store = SnapshotStore()
+        agg = SliceAggregator(("h0:8000",), store,
+                              fetch=lambda target, timeout_s: 'tpu_chip_info{chip_id="0",host="h"} 1\n')
+        try:
+            agg.poll_once()
+            agg.poll_once()
+        finally:
+            agg.close()
+        body = store.current().encode().decode()
+        assert 'tpu_aggregator_round_phase_seconds_count{phase="fold"} 1' in body
+
+    def test_a_round_whose_publish_is_replaced_observes_no_phase(self):
+        """The phases are observed by the publish itself: a round whose
+        publish is wrapped and skipped observes none, and its publish span
+        carries no split."""
+        from tpu_pod_exporter_torch.aggregate import SliceAggregator
+
+        class Skipping(SliceAggregator):
+            skip = False
+
+            def _publish(self, *a, **kw):
+                if not self.skip:
+                    super()._publish(*a, **kw)
+
+        store, ts = SnapshotStore(), TraceStore()
+        agg = Skipping(("h0:8000",), store,
+                       fetch=lambda target, timeout_s: 'tpu_chip_info{chip_id="0",host="h"} 1\n',
+                       tracer=Tracer(ts, slow_poll_s=0.0, root_name="round"))
+        try:
+            agg.poll_once()
+            agg.skip = True
+            agg.poll_once()
+            skipped = ts.last(1)[0]
+            agg.skip = False
+            agg.poll_once()
+        finally:
+            agg.close()
+        publish = next(s for s in skipped.spans if s.name == "publish")
+        assert publish.attrs is None
+        body = store.current().encode().decode()
+        # The third round's snapshot holds the first round's phases only.
+        assert 'tpu_aggregator_round_phase_seconds_count{phase="fetch"} 1' in body

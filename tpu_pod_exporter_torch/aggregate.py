@@ -104,6 +104,14 @@ def default_history_fetch(url: str, timeout_s: float) -> dict:
         return json.loads(resp.read().decode("utf-8", errors="replace"))
 
 
+# ``stages``: the seconds of FETCH_STAGES of the calling thread's last
+# successful default_fetch. The round's scrape clears it before a fetch and
+# reads it after, so the stages reach the round through any wrapper of
+# default_fetch (one fetch's stages stay on the thread that made it).
+_FETCH_STAGES = threading.local()
+FETCH_STAGES = ("headers", "body", "gunzip", "decode")
+
+
 def default_fetch(target: str, timeout_s: float,
                   traceparent: str | None = None) -> str:
     """``host:port`` (or full URL) → exposition text.
@@ -116,19 +124,31 @@ def default_fetch(target: str, timeout_s: float,
     trace + scrape span onto the exporter, which records its serve time as
     a scrape span under that remote context — the cross-tier join asserted
     in tests/test_trace.py.
+
+    A successful fetch leaves its stages on the thread (``_FETCH_STAGES``):
+    headers (``urlopen`` up to the response's headers: connect, send, the
+    target's serve and the first byte), body, gunzip (0 for an identity
+    body) and decode.
     """
     url = target if target.startswith(("http://", "https://")) else f"http://{target}/metrics"
     headers = {"Accept-Encoding": "gzip"}
     if traceparent:
         headers["traceparent"] = traceparent
     req = urllib.request.Request(url, headers=headers)
+    t0 = time.monotonic()
     with urllib.request.urlopen(req, timeout=timeout_s) as resp:  # noqa: S310 — operator-supplied targets
+        t1 = time.monotonic()
         body = resp.read()
+        t2 = time.monotonic()
         if (resp.headers.get("Content-Encoding") or "").lower() == "gzip":
             import gzip
 
             body = gzip.decompress(body)
-        return body.decode("utf-8", errors="replace")
+        t3 = time.monotonic()
+        text = body.decode("utf-8", errors="replace")
+        t4 = time.monotonic()
+    _FETCH_STAGES.stages = (t1 - t0, t2 - t1, t3 - t2, t4 - t3)
+    return text
 
 
 class _SliceAgg:
@@ -816,6 +836,10 @@ class SliceAggregator:
         # histograms.
         self._round_hist = HistogramStore(schema.TPU_AGG_ROUND_HIST)
         self._scrape_hist = HistogramStore(schema.TPU_AGG_TARGET_SCRAPE_HIST)
+        # A round's phases (fetch, parse, fold, publish; observed after the
+        # swap with the round) and each successful default_fetch's stages.
+        self._phase_hist = HistogramStore(schema.TPU_AGG_ROUND_PHASE_HIST)
+        self._fetch_stage_hist = HistogramStore(schema.TPU_AGG_FETCH_STAGE_HIST)
         # Last round's scrape-plane health (ok, quarantined, total), read
         # by ready_detail() from HTTP threads — swapped atomically.
         self._health: tuple[int, int, int] = (0, 0, 0)
@@ -918,10 +942,14 @@ class SliceAggregator:
             )
             out = self._scrape_one(target, traceparent)
             if span is not None:
+                stages = _FETCH_STAGES.stages
                 tr.end_span(
                     span, "ok" if out[1] is not None else "err",
                     target=target,
                     bytes=len(out[1]) if out[1] is not None else 0,
+                    **({} if stages is None else {
+                        f"{stage}_s": v for stage, v in zip(FETCH_STAGES, stages)
+                    }),
                 )
             if br is not None:
                 if out[1] is None:
@@ -940,9 +968,11 @@ class SliceAggregator:
                     br.record_success()
             return out
 
+        tf0 = time.monotonic()
         results = list(
             self._pool.map(scrape, round_targets)
         )  # [(target, text|None, duration_s)]
+        fetch_s = time.monotonic() - tf0
         if self._recorder is not None:
             try:
                 self._recorder.record(results)
@@ -984,7 +1014,7 @@ class SliceAggregator:
             len(round_targets),
         )
         self._publish(results, fallbacks=fallbacks, round_started=t0,
-                      quarantined=quarantined)
+                      quarantined=quarantined, fetch_s=fetch_s, span=pspan)
         if tr is not None:
             ok_n = sum(1 for _t, text, _d in results if text is not None)
             tr.end_span(pspan, "ok")
@@ -1088,6 +1118,7 @@ class SliceAggregator:
 
     def _scrape_one(self, target: str,
                     traceparent: str | None = None) -> tuple[str, str | None, float]:
+        _FETCH_STAGES.stages = None
         t0 = time.monotonic()
         try:
             if traceparent is not None:
@@ -1098,14 +1129,26 @@ class SliceAggregator:
         except Exception as e:  # noqa: BLE001 — a down host is data, not death
             self._rlog.warning(f"scrape:{target}", "scrape of %s failed: %s", target, e)
             return target, None, time.monotonic() - t0
-        return target, text, time.monotonic() - t0
+        dur = time.monotonic() - t0
+        stages = _FETCH_STAGES.stages
+        if stages is not None:
+            for stage, v in zip(FETCH_STAGES, stages):
+                self._fetch_stage_hist.observe(v, (stage,))
+        return target, text, dur
 
     # ---------------------------------------------------------------- publish
 
     def _publish(self, results: Sequence[tuple[str, str | None, float]],
                  fallbacks: dict[str, list] | None = None,
                  round_started: float | None = None,
-                 quarantined: set | None = None) -> None:
+                 quarantined: set | None = None,
+                 fetch_s: float | None = None,
+                 span: Any = None) -> None:
+        """Fold a round's results into a snapshot and swap it in. With the
+        fan-out's ``fetch_s``, observe the round's phases once the swap is
+        done; ``span`` (the round's publish span, ended by the caller) gains
+        the parse, fold and build seconds as attributes."""
+        parse_s = fold_s = 0.0
         b = SnapshotBuilder(prefix_cache=self._prefix_cache)
         for spec in schema.AGGREGATE_SPECS:
             b.declare(spec)
@@ -1126,16 +1169,20 @@ class SliceAggregator:
                 # reported down. Layout-cached: steady-state bodies re-parse
                 # values only (labels dicts are shared with the cache;
                 # _consume reads them, never mutates).
+                tp0 = time.monotonic()
                 try:
                     samples = parse_exposition_layout(
                         text, CONSUMED_NAMES, self._parse_layouts[target]
                     )
                 except ParseError as e:
+                    parse_s += time.monotonic() - tp0
                     ok = False
                     self._rlog.warning(
                         f"parse:{target}", "bad exposition from %s: %s", target, e
                     )
                 else:
+                    tp1 = time.monotonic()
+                    parse_s += tp1 - tp0
                     if target not in self._gpu_targets and any(
                         s[0].startswith("gpu_") for s in samples
                     ):
@@ -1143,6 +1190,7 @@ class SliceAggregator:
                         # CONSUMED_NAMES (a handful of rows per chip).
                         self._gpu_targets.add(target)
                     self._consume(samples, slices, workloads, slice_groups)
+                    fold_s += time.monotonic() - tp1
             if not ok:
                 # A quarantined round was SKIPPED, not attempted — the
                 # error counter keeps meaning "failed scrapes", so the
@@ -1157,7 +1205,9 @@ class SliceAggregator:
                     # answered even though its full scrape didn't; fold its
                     # last-known samples so slice chips/hosts/HBM stay
                     # continuous. target_up stays 0 — the round WAS missed.
+                    tc0 = time.monotonic()
                     self._consume(fb, slices, workloads, slice_groups)
+                    fold_s += time.monotonic() - tc0
                     self._counters.inc(
                         schema.TPU_AGG_HISTORY_FALLBACKS_TOTAL.name, (target,)
                     )
@@ -1185,6 +1235,7 @@ class SliceAggregator:
         # One emit path for every tier: the same function the sharded
         # tree's root uses over accumulators rebuilt from leaf components,
         # so flat and sharded rollups cannot drift (shard-demo oracle).
+        tc0 = time.monotonic()
         emit_rollups(b, slices, workloads, slice_groups, rlog=self._rlog)
         # Subclass hook (the leaf tier emits its tpu_leaf_* component
         # series here); the base aggregator adds nothing.
@@ -1200,6 +1251,7 @@ class SliceAggregator:
                 emit_hook(b)
             except Exception:  # noqa: BLE001 — accounting must never fail a round
                 pass
+        fold_s += time.monotonic() - tc0
         if self._shipper is not None:
             try:
                 self._shipper.emit(b)
@@ -1229,15 +1281,19 @@ class SliceAggregator:
         if rss is not None:
             b.add(schema.TPU_AGG_RSS_BYTES, rss)
         self._round_hist.emit(b)
+        self._phase_hist.emit(b)
         self._scrape_hist.emit(b)
+        self._fetch_stage_hist.emit(b)
         if round_started is not None:
             # One measurement for both the gauge and the histogram, so
             # histogram_quantile cross-checks against the gauge instead of
             # mysteriously exceeding it by the build+swap span.
             round_dur = time.monotonic() - round_started
             b.add(schema.TPU_AGG_ROUND_DURATION_SECONDS, round_dur)
+        tb0 = time.monotonic()
         snap = b.build(timestamp=self._wallclock(), transfer=True)
         self._store.swap(snap)
+        build_s = time.monotonic() - tb0
         if self._shipper is not None:
             # AFTER the swap (the batch covers exactly what scrapers see);
             # one non-blocking queue put — a wedged receiver can never
@@ -1248,6 +1304,13 @@ class SliceAggregator:
                 pass
         if round_started is not None:
             self._round_hist.observe(round_dur)
+        if fetch_s is not None:
+            for phase, dur in (("fetch", fetch_s), ("parse", parse_s),
+                               ("fold", fold_s), ("publish", build_s)):
+                self._phase_hist.observe(dur, (phase,))
+        if span is not None:
+            span.attrs = {"parse_s": parse_s, "fold_s": fold_s,
+                          "build_s": build_s}
 
     @staticmethod
     def _consume(samples: Iterable[tuple[str, dict[str, str], float]],

@@ -456,6 +456,7 @@ class ExporterApp:
             scrape_rejects_fn=lambda: dict(self.server.scrape_rejects),
             loop_overruns_fn=lambda: self.loop.overruns,
             scrape_duration_hist=scrape_hist,
+            server_timings_fn=lambda b: self.server.emit_timings(b),
             history=self.history,
             supervisors=self.supervisors,
             tracer=self.tracer,

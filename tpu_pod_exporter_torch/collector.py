@@ -104,6 +104,9 @@ class Collector:
         loop_overruns_fn: Callable[[], int] | None = None,
         # HistogramStore fed by the HTTP server
         scrape_duration_hist: HistogramStore | None = None,
+        # (SnapshotBuilder) -> None, from the HTTP server: its timing
+        # families (MetricsServer.emit_timings)
+        server_timings_fn: Callable[[Any], None] | None = None,
         # HistoryStore fed after each snapshot swap
         history: "HistoryStore | None" = None,
         # {"device"|"attribution"|"process_scan": SourceSupervisor}
@@ -166,6 +169,7 @@ class Collector:
             schema.TPU_EXPORTER_POLL_PHASE_DURATION_HIST
         )
         self._scrape_hist = scrape_duration_hist
+        self._server_timings_fn = server_timings_fn
         # Flight recorder: fed once per poll AFTER the snapshot swap, so the
         # scrape path never contends on the history lock. The append
         # duration lands in the next snapshot (one poll behind, like
@@ -282,6 +286,7 @@ class Collector:
                      breaker=sup.breaker.state if sup is not None else "")
         dev_status = "ok"
         host_sample: HostSample | None = None
+        read_wall0 = self._wallclock()
         try:
             host_sample = sup.call() if sup is not None else self._backend.sample()
             self._phase_recovered("device_read", supervised=sup is not None)
@@ -310,6 +315,7 @@ class Collector:
             errors.append("device_read")
             self._count_phase_failure("device_read", sup)
             self._rlog.error("device_read_unexpected", "device read failed unexpectedly: %s", e, exc_info=True)
+        read_wall1 = self._wallclock()
         td1 = self._clock()
         if tr is not None:
             tr.end(dev_status,
@@ -396,7 +402,8 @@ class Collector:
             tr.begin("publish")
         snap = self._publish(host_sample, device_owner, stats, now_mono=tj1,
                              allocatable=allocatable, allocated=allocated,
-                             holders=holders)
+                             holders=holders,
+                             device_read_wall=(read_wall0, read_wall1))
         tp1 = self._clock()
         if tr is not None:
             tr.end("ok", series=snap.series_count)
@@ -581,7 +588,8 @@ class Collector:
                  device_owner: dict[str, Any], stats: PollStats,
                  now_mono: float, allocatable: Iterable[str] | None = None,
                  allocated: int | None = None,
-                 holders: Sequence[Any] | None = None) -> "Snapshot":
+                 holders: Sequence[Any] | None = None,
+                 device_read_wall: tuple[float, float] | None = None) -> "Snapshot":
         b = SnapshotBuilder(prefix_cache=self._prefix_cache)
 
         # GPU-family detection BEFORE the declares: a recorded/fake mixed
@@ -600,6 +608,11 @@ class Collector:
         self._phase_hist.emit(b)
         if self._scrape_hist is not None:
             self._scrape_hist.emit(b)
+        if self._server_timings_fn is not None:
+            try:
+                self._server_timings_fn(b)
+            except Exception:  # noqa: BLE001 — accounting must never fail a poll
+                pass
         if self._legacy_metrics:
             b.declare(schema.LEGACY_POD_MEMORY_USAGE)
             b.declare(schema.LEGACY_POD_MEMORY_PERC_USAGE)
@@ -944,6 +957,11 @@ class Collector:
             },
         )
         b.add(schema.TPU_EXPORTER_LAST_POLL_TIMESTAMP_SECONDS, self._wallclock())
+        if device_read_wall is not None:
+            b.add(schema.TPU_EXPORTER_LAST_DEVICE_READ_TIMESTAMP_SECONDS,
+                  device_read_wall[0], ("start",))
+            b.add(schema.TPU_EXPORTER_LAST_DEVICE_READ_TIMESTAMP_SECONDS,
+                  device_read_wall[1], ("end",))
 
         # Self-resource accounting (<1% CPU budget, auditable in production).
         cpu_s = utils.process_cpu_seconds()

@@ -335,6 +335,15 @@ TPU_EXPORTER_SCRAPE_DURATION_HIST = HistogramSpec(
     buckets=SCRAPE_DURATION_BUCKETS,
 )
 
+# How late the server's event loop ran each due timer (a 100 ms probe timer
+# keeps it sampled when nothing else is due): the loop thread's wait for
+# the interpreter while other threads hold it.
+TPU_EXPORTER_SERVER_LOOP_LAG_HIST = HistogramSpec(
+    name="tpu_exporter_server_loop_lag_seconds",
+    help="Distribution of how late the HTTP server's event loop ran each due timer, including a 100 ms probe timer.",
+    buckets=SCRAPE_DURATION_BUCKETS,
+)
+
 TPU_EXPORTER_POLL_ERRORS_TOTAL = MetricSpec(
     name="tpu_exporter_poll_errors_total",
     help="Count of poll-phase errors since exporter start, by source.",
@@ -364,6 +373,16 @@ TPU_EXPORTER_LAST_POLL_TIMESTAMP_SECONDS = MetricSpec(
     name="tpu_exporter_last_poll_timestamp_seconds",
     help="Unix timestamp of the most recent completed poll.",
     type=GAUGE,
+)
+
+# Wall-clock instants just before and just after the device read of the
+# poll whose stamp is tpu_exporter_last_poll_timestamp_seconds, published in
+# the same snapshot: they place the served values among the card's states.
+TPU_EXPORTER_LAST_DEVICE_READ_TIMESTAMP_SECONDS = MetricSpec(
+    name="tpu_exporter_last_device_read_timestamp_seconds",
+    help="Unix timestamps just before (edge=start) and just after (edge=end) the device read of the most recent completed poll.",
+    type=GAUGE,
+    label_names=("edge",),
 )
 
 # Self-resource accounting: the <1% node CPU budget (BASELINE.md) must be
@@ -768,6 +787,7 @@ ALL_SPECS: tuple[MetricSpec, ...] = (
     TPU_EXPORTER_POLL_OVERRUNS_TOTAL,
     TPU_EXPORTER_SERIES,
     TPU_EXPORTER_LAST_POLL_TIMESTAMP_SECONDS,
+    TPU_EXPORTER_LAST_DEVICE_READ_TIMESTAMP_SECONDS,
     TPU_EXPORTER_CPU_SECONDS_TOTAL,
     TPU_EXPORTER_RSS_BYTES,
     TPU_EXPORTER_SCRAPE_REJECTS_TOTAL,
@@ -1059,6 +1079,26 @@ TPU_AGG_TARGET_SCRAPE_HIST = HistogramSpec(
     name="tpu_aggregator_target_scrape_seconds",
     help="Distribution of SUCCESSFUL per-target scrape durations since start, pooled across targets (failures/timeouts are excluded — see tpu_aggregator_target_up and _scrape_errors_total).",
     buckets=POLL_DURATION_BUCKETS,
+)
+
+# A round's phases: the fan-out's wall time (fetch), the summed exposition
+# parses (parse), the folds and rollup emits (fold) and the snapshot build
+# and swap (publish). Observed after the swap, like the round histogram.
+TPU_AGG_ROUND_PHASE_HIST = HistogramSpec(
+    name="tpu_aggregator_round_phase_seconds",
+    help="Distribution of aggregation round phase durations since start, by phase: fetch (the scrape fan-out's wall time), parse, fold and publish (snapshot build and swap).",
+    buckets=POLL_DURATION_BUCKETS,
+    label_names=("phase",),
+)
+
+# One successful default_fetch split into its stages: headers (connect,
+# send, the target's serve and the first byte), body (the read), gunzip
+# (0 for an identity-encoded body) and decode.
+TPU_AGG_FETCH_STAGE_HIST = HistogramSpec(
+    name="tpu_aggregator_fetch_stage_seconds",
+    help="Distribution of SUCCESSFUL per-target fetch stage durations since start, pooled across targets, by stage: headers, body, gunzip and decode.",
+    buckets=POLL_DURATION_BUCKETS,
+    label_names=("stage",),
 )
 
 # --- Fleet query plane (tpu_pod_exporter_torch.fleet) -------------------------------

@@ -62,7 +62,7 @@ from itertools import islice
 from typing import Any, Callable
 from urllib.parse import parse_qs
 
-from tpu_pod_exporter_torch.metrics import SnapshotStore
+from tpu_pod_exporter_torch.metrics import HistogramStore, SnapshotStore, schema
 from tpu_pod_exporter_torch.trace import parse_traceparent, to_chrome_trace
 
 
@@ -176,6 +176,10 @@ _ADMISSION_EXEMPT_PATHS = ("/healthz", "/readyz")
 # Scatter-gather writes need sendmsg (Linux/BSD; absent on some
 # platforms — the per-view send() path below is the fallback).
 _HAS_SENDMSG = hasattr(socket.socket, "sendmsg")
+
+# The loop's lag probe: a timer re-armed at this period, so how late the
+# loop runs its timers is sampled even when no other timer is due.
+_LOOP_LAG_PROBE_S = 0.1
 
 
 def accepts_openmetrics(accept: str) -> bool:
@@ -543,6 +547,9 @@ class _HandlerState:
         # None = /api/v1/stream answers 404 on this tier.
         self.stream: Any = None
         self.stream_max_buffer_bytes: int = 2 << 20
+        # The loop's timer lag, always observed; emitted by the collector
+        # (MetricsServer.emit_timings).
+        self.loop_lag_hist = HistogramStore(schema.TPU_EXPORTER_SERVER_LOOP_LAG_HIST)
 
 
 class _CompatHandle:
@@ -609,6 +616,7 @@ class _EventLoopServer:
     # ------------------------------------------------------------ loop core
 
     def run(self) -> None:
+        self.call_later(_LOOP_LAG_PROBE_S, self._lag_probe)
         try:
             while not self._stopping:
                 timeout: float | None = None
@@ -696,10 +704,17 @@ class _EventLoopServer:
             except Exception:  # noqa: BLE001 — one callback must not kill the loop
                 log.exception("loop callback failed")
 
+    def _lag_probe(self) -> None:
+        """Loop-thread: re-arm, so that _run_timers observes the loop's lag
+        even while no other timer is due."""
+        self.call_later(_LOOP_LAG_PROBE_S, self._lag_probe)
+
     def _run_timers(self) -> None:
         now = time.monotonic()
+        lag = self.state.loop_lag_hist
         while self._timers and self._timers[0][0] <= now:
-            _, _, fn = heapq.heappop(self._timers)
+            due, _, fn = heapq.heappop(self._timers)
+            lag.observe(now - due)
             try:
                 self._invoke("timer", fn)
             except Exception:  # noqa: BLE001 — one timer must not kill the loop
@@ -1846,6 +1861,11 @@ class MetricsServer:
     @property
     def port(self) -> int:
         return self._loop.port
+
+    def emit_timings(self, b: Any) -> None:
+        """Add the server's timing family, the loop's timer lag, to a
+        snapshot being built (a SnapshotBuilder)."""
+        self._state.loop_lag_hist.emit(b)
 
     def stats(self) -> dict[str, int]:
         """Loop/pool counters for /debug/vars (RUNBOOK 'server')."""
