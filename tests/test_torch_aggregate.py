@@ -1716,3 +1716,639 @@ class TestRoundPhasesAndFetchStages:
         assert _hist_total(fams, "tpu_aggregator_target_scrape_seconds", "_count") == 4.0
         assert _hist_total(fams, "tpu_aggregator_round_phase_seconds", "_count",
                            phase="parse") == 1.0
+
+
+class _Node:
+    """A node on 127.0.0.1 for the fan-out's tests: one thread a connection
+    answers every ``GET`` with ``body`` as ``mode`` frames it ("length",
+    "chunked" or "eof"; "silent" never answers), gzipped where the request
+    accepts gzip and ``gzip_ok``, after ``delay_s``, in ``pieces`` writes
+    ``gap_s`` apart; with ``hold`` it keeps the connection open after the
+    response until the client closes it. ``raw`` replaces the whole
+    response. ``heads`` keeps
+    each request's head, ``at`` the monotonic instant it was read; ``waiting``, shared between nodes, counts the
+    requests read and not yet answered, and keeps the most at once."""
+
+    def __init__(self, body: str, mode: str = "length", gzip_ok: bool = True,
+                 status: str = "200 OK", raw: bytes | None = None,
+                 delay_s: float = 0.0, pieces: int = 1, gap_s: float = 0.0,
+                 hold: bool = False, waiting: dict | None = None) -> None:
+        import socket
+        import threading
+
+        self.body, self.mode, self.gzip_ok = body.encode(), mode, gzip_ok
+        self.status, self.raw = status, raw
+        self.delay_s, self.pieces, self.gap_s, self.hold = delay_s, pieces, gap_s, hold
+        self.waiting = waiting
+        self.heads: list[str] = []
+        self.at: list[float] = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._lsock = socket.create_server(("127.0.0.1", 0), backlog=64)
+        self._lsock.settimeout(0.05)
+        self.port = self._lsock.getsockname()[1]
+        self.target = f"127.0.0.1:{self.port}"
+        self._threads = [threading.Thread(target=self._accept, daemon=True)]
+        self._threads[0].start()
+
+    def response(self, head: str) -> bytes:
+        import gzip
+
+        if self.raw is not None:
+            return self.raw
+        accepts = any(line.lower().startswith("accept-encoding:") and "gzip" in line.lower()
+                      for line in head.split("\r\n"))
+        zipped = self.gzip_ok and accepts
+        payload = gzip.compress(self.body) if zipped else self.body
+        fields = [f"HTTP/1.1 {self.status}", "Content-Type: text/plain; version=0.0.4"]
+        if zipped:
+            fields.append("Content-Encoding: gzip")
+        if self.mode == "chunked":
+            fields.append("Transfer-Encoding: chunked")
+            cut = [payload[i:i + 997] for i in range(0, len(payload), 997)]
+            payload = b"".join(f"{len(c):x};n=1\r\n".encode() + c + b"\r\n" for c in cut)
+            payload += b"0\r\n\r\n"
+        elif self.mode == "length":
+            fields.append(f"Content-Length: {len(payload)}")
+        fields.append("Connection: close")
+        return ("\r\n".join(fields) + "\r\n\r\n").encode() + payload
+
+    def _accept(self) -> None:
+        import threading
+
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._lsock.accept()
+            except TimeoutError:
+                continue
+            except OSError:
+                return
+            t = threading.Thread(target=self._serve, args=(conn,), daemon=True)
+            t.start()
+            with self._lock:
+                self._threads.append(t)
+
+    def _serve(self, conn) -> None:
+        import time
+
+        with conn:
+            data = b""
+            while b"\r\n\r\n" not in data:
+                chunk = conn.recv(65536)
+                if not chunk:
+                    return
+                data += chunk
+            head = data.split(b"\r\n\r\n", 1)[0].decode("latin-1")
+            with self._lock:
+                self.heads.append(head)
+                self.at.append(time.monotonic())
+            if self.mode == "silent":
+                self._stop.wait(30)
+                return
+            self._count(+1)
+            try:
+                time.sleep(self.delay_s)
+                out = self.response(head)
+            finally:
+                self._count(-1)
+            step = -(-len(out) // self.pieces)
+            for i in range(0, len(out), step):
+                if i:
+                    time.sleep(self.gap_s)
+                conn.sendall(out[i:i + step])
+            while self.hold and conn.recv(65536):
+                pass
+
+    def _count(self, d: int) -> None:
+        if self.waiting is not None:
+            with self.waiting["lock"]:
+                self.waiting["now"] += d
+                self.waiting["most"] = max(self.waiting["most"], self.waiting["now"])
+
+    def close(self) -> None:
+        self._stop.set()
+        self._lsock.close()
+        with self._lock:
+            threads = list(self._threads)
+        for t in threads:
+            t.join(timeout=5)
+            assert not t.is_alive()
+
+
+class _Rounds:
+    """A round recorder that keeps each round's ``(target, text)`` pairs."""
+
+    def __init__(self) -> None:
+        self.rounds: list[list[tuple[str, str | None]]] = []
+
+    def record(self, results) -> None:
+        self.rounds.append([(t, text) for t, text, _d in results])
+
+
+def _pool_fetch(target, timeout_s, traceparent=None):
+    """default_fetch behind a wrapper: the aggregator takes the pool."""
+    from tpu_pod_exporter_torch.aggregate import default_fetch
+
+    return default_fetch(target, timeout_s, traceparent=traceparent)
+
+
+def _fanout_agg(targets, path: str, **kw):
+    from tpu_pod_exporter_torch.aggregate import default_fetch
+
+    store = SnapshotStore()
+    fetch = default_fetch if path == "loop" else _pool_fetch
+    kw.setdefault("wallclock", lambda: 1.7e9)
+    return SliceAggregator(tuple(targets), store, fetch=fetch, **kw), store
+
+
+# Families whose samples are timings or the process's own usage, or that
+# name the transport: the rest of a body is the same on either path.
+_TIMING_FAMILIES = (
+    "tpu_aggregator_round_duration_seconds", "tpu_aggregator_scrape_duration_seconds",
+    "tpu_aggregator_round_seconds", "tpu_aggregator_target_scrape_seconds",
+    "tpu_aggregator_round_phase_seconds", "tpu_aggregator_fetch_stage_seconds",
+    "tpu_aggregator_cpu_seconds_total", "tpu_aggregator_rss_bytes",
+    "tpu_aggregator_fetch_rounds_total",
+)
+
+
+def _untimed(body: str) -> list[str]:
+    import re
+
+    out = []
+    for line in body.splitlines():
+        name = (line.split(" ", 3)[2] if line.startswith("#")
+                else re.split(r"[{ ]", line, maxsplit=1)[0])
+        if re.sub(r"_(bucket|count|sum)$", "", name) not in _TIMING_FAMILIES:
+            out.append(line)
+    return out
+
+
+def _transport_rounds(store) -> dict[str, float]:
+    return {dict(labels)["transport"]: v
+            for (name, labels), v in _families(store.current().encode().decode()).items()
+            if name == "tpu_aggregator_fetch_rounds_total"}
+
+
+class TestLoopFetch:
+    """The round's fan-out from one selectors loop in the round's thread
+    (an aggregator on default_fetch over http targets) against the pool it
+    replaces (default_fetch behind a wrapper), over real local nodes."""
+
+    @pytest.mark.parametrize("mode,gzip_ok,hold", [
+        ("length", True, False), ("length", False, False), ("length", True, True),
+        ("length", False, True), ("chunked", True, False), ("chunked", False, False),
+        ("eof", True, False), ("eof", False, False),
+    ])
+    def test_loop_and_pool_publish_the_same(self, mode, gzip_ok, hold):
+        """``hold``: the node leaves the connection open after its answer,
+        so the fetch ends by its Content-Length, not by EOF."""
+        nodes = [_Node(make_host_text(w, pod=f"job-{w % 2}"), mode=mode, gzip_ok=gzip_ok,
+                       hold=hold) for w in range(3)]
+        try:
+            bodies, records = {}, {}
+            for path in ("loop", "pool"):
+                records[path] = _Rounds()
+                agg, store = _fanout_agg([n.target for n in nodes], path,
+                                         recorder=records[path])
+                try:
+                    for _ in range(2):
+                        agg.poll_once()
+                finally:
+                    agg.close()
+                bodies[path] = store.current().encode().decode()
+                assert _transport_rounds(store) == {path: 2.0}
+        finally:
+            for n in nodes:
+                n.close()
+        assert records["loop"].rounds == records["pool"].rounds
+        assert records["loop"].rounds[0] == [(n.target, n.body.decode()) for n in nodes]
+        assert _untimed(bodies["loop"]) == _untimed(bodies["pool"])
+        assert "tpu_slice_chip_count" in bodies["loop"]
+
+    @pytest.mark.parametrize("path", ["loop", "pool"])
+    @pytest.mark.parametrize("answer", [
+        "404 Not Found", "500 Internal Server Error", "truncated", "truncated chunks",
+        "not http", "bad gzip",
+    ])
+    def test_a_bad_answer_is_a_failed_scrape(self, path, answer):
+        good = _Node(make_host_text(0))
+        whole = make_host_text(1).encode()
+        raw = {
+            # a whole exposition, but less than its Content-Length says
+            "truncated": b"HTTP/1.1 200 OK\r\nContent-Length: %d\r\n\r\n%s" % (
+                len(whole) + 100, whole),
+            # the last chunk's data cut short, and no closing chunk
+            "truncated chunks": (b"HTTP/1.1 200 OK\r\nTransfer-Encoding: chunked\r\n\r\n"
+                                 b"%x\r\n%s\r\n%x\r\n%s" % (len(whole), whole, 100, whole[:40])),
+            "not http": b"SSH-2.0-OpenSSH_9.6\r\n\r\n",
+            "bad gzip": (b"HTTP/1.1 200 OK\r\nContent-Encoding: gzip\r\n"
+                         b"Content-Length: 9\r\n\r\nnot gzip!"),
+        }.get(answer)
+        bad = _Node(make_host_text(1), status=answer, raw=raw)
+        try:
+            agg, store = _fanout_agg([good.target, bad.target], path)
+            try:
+                agg.poll_once()
+            finally:
+                agg.close()
+        finally:
+            good.close()
+            bad.close()
+        snap = store.current()
+        assert snap.value("tpu_aggregator_target_up", (good.target,)) == 1.0
+        assert snap.value("tpu_aggregator_target_up", (bad.target,)) == 0.0
+        assert snap.value("tpu_aggregator_scrape_errors_total", (bad.target,)) == 1.0
+        assert snap.value("tpu_aggregator_scrape_errors_total", (good.target,)) is None
+        assert len(bad.heads) == 1
+
+    def test_a_redirect_is_a_failed_scrape_on_the_loop(self):
+        good = _Node(make_host_text(0))
+        moved = _Node("", raw=(f"HTTP/1.1 302 Found\r\nLocation: http://{good.target}/metrics"
+                               "\r\nContent-Length: 0\r\n\r\n").encode())
+        try:
+            agg, store = _fanout_agg([moved.target], "loop")
+            try:
+                agg.poll_once()
+            finally:
+                agg.close()
+        finally:
+            good.close()
+            moved.close()
+        assert store.current().value("tpu_aggregator_target_up", (moved.target,)) == 0.0
+        assert good.heads == []
+
+    @pytest.mark.parametrize("path", ["loop", "pool"])
+    def test_a_refused_port_fails_at_once(self, path):
+        import socket
+        import time
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            refused = f"127.0.0.1:{s.getsockname()[1]}"
+        agg, store = _fanout_agg([refused], path, timeout_s=5.0)
+        try:
+            t0 = time.monotonic()
+            agg.poll_once()
+            took = time.monotonic() - t0
+        finally:
+            agg.close()
+        assert took < 1.0
+        assert store.current().value("tpu_aggregator_scrape_errors_total", (refused,)) == 1.0
+
+    def test_silent_nodes_fail_after_one_timeout_together(self):
+        import time
+
+        silent = [_Node("", mode="silent") for _ in range(3)]
+        good = _Node(make_host_text(0))
+        agg, store = _fanout_agg([*(n.target for n in silent), good.target], "loop",
+                                 timeout_s=0.5)
+        try:
+            t0 = time.monotonic()
+            agg.poll_once()
+            took = time.monotonic() - t0
+        finally:
+            agg.close()
+            for n in [*silent, good]:
+                n.close()
+        assert 0.5 <= took < 1.2, took
+        snap = store.current()
+        assert snap.value("tpu_aggregator_target_up", (good.target,)) == 1.0
+        for n in silent:
+            assert len(n.heads) == 1
+            assert snap.value("tpu_aggregator_target_up", (n.target,)) == 0.0
+            assert snap.value("tpu_aggregator_scrape_errors_total", (n.target,)) == 1.0
+
+    def test_a_chunked_answer_on_a_held_connection_fails_on_the_loop(self):
+        """Without a Content-Length the loop reads to EOF: a node that keeps
+        the connection open despite ``Connection: close`` fails after one
+        ``timeout_s`` there, where urllib, on the pool, reads the chunks."""
+        import time
+
+        node = _Node(make_host_text(0), mode="chunked", hold=True)
+        try:
+            up = {}
+            for path in ("loop", "pool"):
+                agg, store = _fanout_agg([node.target], path, timeout_s=0.4)
+                try:
+                    t0 = time.monotonic()
+                    agg.poll_once()
+                    took = time.monotonic() - t0
+                finally:
+                    agg.close()
+                up[path] = store.current().value("tpu_aggregator_target_up", (node.target,))
+                if path == "loop":
+                    assert 0.4 <= took < 1.0, took
+        finally:
+            node.close()
+        assert up == {"loop": 0.0, "pool": 1.0}
+
+    def test_a_slow_lookup_holds_back_only_its_own_target(self, monkeypatch):
+        """Names are looked up off the loop's thread, at once: the other
+        targets finish inside one ``timeout_s`` while one lookup takes
+        three, and the slow one still succeeds (a lookup has no deadline,
+        as in urllib)."""
+        import socket
+        import time
+
+        nodes = {f"node-{w}.example": _Node(make_host_text(w)) for w in range(4)}
+        real = socket.getaddrinfo
+
+        def getaddrinfo(host, port, *a, **kw):
+            if host == "node-0.example":
+                time.sleep(1.2)
+            if host in nodes:
+                return [(socket.AF_INET, socket.SOCK_STREAM, 6, "",
+                         ("127.0.0.1", nodes[host].port))]
+            return real(host, port, *a, **kw)
+
+        monkeypatch.setattr(socket, "getaddrinfo", getaddrinfo)
+        targets = [f"{host}:9100" for host in nodes]
+        records = _Rounds()
+        agg, store = _fanout_agg(targets, "loop", timeout_s=0.4, recorder=records)
+        try:
+            t0 = time.monotonic()
+            agg.poll_once()
+            took = time.monotonic() - t0
+        finally:
+            agg.close()
+            for n in nodes.values():
+                n.close()
+        assert 1.2 <= took < 2.0, took
+        for n in list(nodes.values())[1:]:
+            assert n.at[0] - t0 < 0.4
+        assert records.rounds == [[(t, n.body.decode()) for t, n in zip(targets, nodes.values())]]
+        snap = store.current()
+        assert snap.value("tpu_aggregator_scrape_duration_seconds", (targets[0],)) >= 1.2
+        for target in targets[1:]:
+            assert snap.value("tpu_aggregator_scrape_duration_seconds", (target,)) < 0.4
+        assert _transport_rounds(store) == {"loop": 1.0}
+
+    def test_a_fault_planted_on_loop_fetch_reaches_the_round(self, monkeypatch):
+        """``aggregate.loop_fetch`` is the loop's seam: a wrapper of it
+        that drops one target's answer runs in the round."""
+        from tpu_pod_exporter_torch import aggregate
+
+        nodes = [_Node(make_host_text(w)) for w in range(2)]
+        fetch = aggregate.loop_fetch
+
+        def half(targets, timeout_s, begin, end, resolver):
+            def dropped(i, text, error, t0, stages):
+                if i == 1:
+                    text, error, stages = None, OSError("left out"), None
+                end(i, text, error, t0, stages)
+            fetch(targets, timeout_s, begin, dropped, resolver)
+
+        monkeypatch.setattr(aggregate, "loop_fetch", half)
+        agg, store = _fanout_agg([n.target for n in nodes], "loop")
+        try:
+            agg.poll_once()
+        finally:
+            agg.close()
+            for n in nodes:
+                n.close()
+        snap = store.current()
+        assert snap.value("tpu_aggregator_target_up", (nodes[0].target,)) == 1.0
+        assert snap.value("tpu_aggregator_target_up", (nodes[1].target,)) == 0.0
+        assert _transport_rounds(store) == {"loop": 1.0}
+
+    def test_a_loop_aggregator_keeps_a_rounds_freed_memory_mapped(self):
+        """The loop allocates a round's bodies in the main arena: built on
+        the loop, the aggregator keeps that memory mapped when the round
+        frees it, so the next round takes no page faults for it."""
+        import subprocess
+        import sys
+        import textwrap
+
+        script = textwrap.dedent("""
+            import resource, sys
+            from tpu_pod_exporter_torch import aggregate
+            from tpu_pod_exporter_torch.metrics import SnapshotStore
+
+            def wrapper(t, s, traceparent=None):
+                return aggregate.default_fetch(t, s, traceparent=traceparent)
+
+            loop = sys.argv[1] == "loop"
+            aggregate.SliceAggregator(
+                ("127.0.0.1:9",), SnapshotStore(),
+                fetch=aggregate.default_fetch if loop else wrapper).close()
+            faults = []
+            for _ in range(3):  # a round's bodies, made and freed
+                f0 = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+                bodies = [bytes([65 + i % 26]) * 38000 for i in range(64)]
+                del bodies
+                faults.append(resource.getrusage(resource.RUSAGE_SELF).ru_minflt - f0)
+            print(faults[-1])
+        """)
+        faults = {}
+        for path in ("loop", "pool"):
+            out = subprocess.run([sys.executable, "-c", script, path], capture_output=True,
+                                 text=True, timeout=120, check=True,
+                                 cwd=Path(__file__).resolve().parent.parent)
+            faults[path] = int(out.stdout.split()[-1])
+        assert faults["loop"] < 10, faults
+        if faults["pool"]:  # where the platform counts minor faults at all
+            assert faults["pool"] > 10 * faults["loop"], faults
+
+    def test_a_slow_node_that_keeps_sending_succeeds(self):
+        import time
+
+        slow = _Node(make_host_text(0), pieces=6, gap_s=0.15)
+        records = _Rounds()
+        agg, store = _fanout_agg([slow.target], "loop", timeout_s=0.4, recorder=records)
+        try:
+            t0 = time.monotonic()
+            agg.poll_once()
+            took = time.monotonic() - t0
+        finally:
+            agg.close()
+            slow.close()
+        assert took > 0.4
+        assert records.rounds == [[(slow.target, slow.body.decode())]]
+        assert store.current().value("tpu_aggregator_target_up", (slow.target,)) == 1.0
+
+    @pytest.mark.parametrize("path", ["loop", "pool"])
+    def test_breaker_quarantines_and_recovers(self, path, caplog):
+        import logging as _logging
+
+        node = _Node(make_host_text(0), status="500 Internal Server Error")
+        agg, store = _fanout_agg([node.target], path, breaker_failures=2,
+                                 breaker_backoff_s=5.0, breaker_backoff_max_s=20.0)
+        clock = [0.0]
+        br = agg._breakers[node.target]
+        br._clock = lambda: clock[0]
+        br._rng = type("R", (), {"random": staticmethod(lambda: 0.5)})()
+        try:
+            for _ in range(2):
+                agg.poll_once()
+                clock[0] += 1.0
+            assert br.state == "open"
+            for _ in range(2):  # quarantined: no request
+                agg.poll_once()
+            assert len(node.heads) == 2
+            snap = store.current()
+            assert snap.value("tpu_aggregator_target_breaker_state", (node.target,)) == 1.0
+            assert snap.value("tpu_aggregator_scrape_errors_total", (node.target,)) == 2.0
+            node.status = "200 OK"
+            clock[0] += 5.0
+            with caplog.at_level(_logging.WARNING, logger="tpu_pod_exporter_torch.aggregate"):
+                agg.poll_once()  # the half-open probe succeeds
+        finally:
+            agg.close()
+            node.close()
+        assert len(node.heads) == 3 and br.state == "closed"
+        snap = store.current()
+        assert snap.value("tpu_aggregator_target_up", (node.target,)) == 1.0
+        assert snap.value("tpu_aggregator_target_breaker_state", (node.target,)) == 0.0
+        assert any("healthy again after 2 failed scrape(s)" in r.getMessage()
+                   for r in caplog.records)
+
+    def test_the_traceparent_reaches_the_node(self):
+        from tpu_pod_exporter_torch.trace import Tracer, TraceStore
+
+        node = _Node(make_host_text(0))
+        traces = TraceStore(max_traces=4)
+        agg, _store = _fanout_agg([node.target], "loop",
+                                  tracer=Tracer(traces, slow_poll_s=0.0, root_name="round"))
+        try:
+            agg.poll_once()
+        finally:
+            agg.close()
+            node.close()
+        (trace,) = traces.last(1)
+        (span,) = [s for s in trace.spans if s.name == "scrape"]
+        assert trace.root.attrs["transport"] == "loop"
+        assert span.status == "ok" and span.attrs["target"] == node.target
+        assert span.attrs["headers_s"] > 0.0
+        (head,) = node.heads
+        assert f"traceparent: 00-{trace.trace_id}-{span.span_id}-01" in head.split("\r\n")
+        assert head.startswith("GET /metrics HTTP/1.1\r\n")
+        assert f"Host: {node.target}" in head.split("\r\n")
+
+    def test_stages_and_target_durations_are_observed(self):
+        from tpu_pod_exporter_torch.aggregate import FETCH_STAGES
+
+        nodes = [_Node(make_host_text(w)) for w in range(2)]
+        agg, store = _fanout_agg([n.target for n in nodes], "loop")
+        try:
+            for _ in range(3):
+                agg.poll_once()
+        finally:
+            agg.close()
+            for n in nodes:
+                n.close()
+        fams = _families(store.current().encode().decode())
+        stage = "tpu_aggregator_fetch_stage_seconds"
+        for s in FETCH_STAGES:
+            assert _hist_total(fams, stage, "_count", stage=s) == 6
+        assert _hist_total(fams, stage, "_sum", stage="gunzip") > 0.0
+        scrapes = _hist_total(fams, "tpu_aggregator_target_scrape_seconds", "_sum")
+        assert 0.0 < sum(_hist_total(fams, stage, "_sum", stage=s)
+                         for s in FETCH_STAGES) <= scrapes
+        for n in nodes:
+            assert store.current().value(
+                "tpu_aggregator_scrape_duration_seconds", (n.target,)) > 0.0
+
+    @pytest.mark.parametrize("fetch_kind", ["default_fetch", "wrapper", "https_target"])
+    def test_rounds_are_counted_by_transport(self, fetch_kind):
+        node = _Node(make_host_text(0))
+        targets = [node.target]
+        if fetch_kind == "https_target":
+            targets.append("https://127.0.0.1:9/metrics")
+        agg, store = _fanout_agg(targets, "pool" if fetch_kind == "wrapper" else "loop")
+        try:
+            for _ in range(4):
+                agg.poll_once()
+        finally:
+            agg.close()
+            node.close()
+        want = "loop" if fetch_kind == "default_fetch" else "pool"
+        assert _transport_rounds(store) == {want: 4.0}
+        assert store.current().value("tpu_aggregator_target_up", (node.target,)) == 1.0
+
+    def test_healthy_rounds_on_the_loop_start_no_pool_thread(self):
+        import threading
+
+        nodes = [_Node(make_host_text(w)) for w in range(3)]
+        agg, store = _fanout_agg([n.target for n in nodes], "loop")
+        try:
+            for _ in range(20):
+                agg.poll_once()
+            names = [t.name for t in threading.enumerate()]
+        finally:
+            agg.close()
+            for n in nodes:
+                n.close()
+        assert not [n for n in names if n.startswith("tpu-agg-scrape")], names
+        assert _transport_rounds(store) == {"loop": 20.0}
+
+    @pytest.mark.parametrize("path", ["loop", "pool"])
+    def test_at_most_the_fanout_width_in_flight(self, path):
+        import threading
+
+        from tpu_pod_exporter_torch.aggregate import FANOUT_WIDTH
+
+        waiting = {"lock": threading.Lock(), "now": 0, "most": 0}
+        nodes = [_Node(make_host_text(0), delay_s=0.2, waiting=waiting) for _ in range(40)]
+        agg, store = _fanout_agg([n.target for n in nodes], path, timeout_s=5.0)
+        try:
+            agg.poll_once()
+        finally:
+            agg.close()
+            for n in nodes:
+                n.close()
+        assert waiting["most"] == FANOUT_WIDTH == 16
+        assert all(len(n.heads) == 1 for n in nodes)
+        snap = store.current()
+        assert all(snap.value("tpu_aggregator_target_up", (n.target,)) == 1.0 for n in nodes)
+
+    @pytest.mark.parametrize("first", ["refused", "good"])
+    def test_a_name_resolves_and_its_addresses_are_tried_in_turn(self, first, monkeypatch):
+        import socket
+
+        node = _Node(make_host_text(0))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            refused = s.getsockname()[1]
+        addrs = [refused, node.port] if first == "refused" else [node.port, refused]
+        asked = []
+
+        def getaddrinfo(host, port, *a, **kw):
+            asked.append((host, port))
+            return [(socket.AF_INET, socket.SOCK_STREAM, 6, "", ("127.0.0.1", p))
+                    for p in addrs]
+
+        monkeypatch.setattr(socket, "getaddrinfo", getaddrinfo)
+        target = "node-a.example:9100"
+        records = _Rounds()
+        agg, store = _fanout_agg([target], "loop", recorder=records)
+        try:
+            agg.poll_once()
+        finally:
+            agg.close()
+            node.close()
+        assert asked == [("node-a.example", 9100)]
+        assert records.rounds == [[(target, node.body.decode())]]
+        (head,) = node.heads
+        assert "Host: node-a.example:9100" in head.split("\r\n")
+
+    @pytest.mark.parametrize("target", ["node-b.example:9100", "http://:9100/metrics"])
+    def test_a_target_that_does_not_resolve_is_a_failed_scrape(self, target, monkeypatch):
+        import socket
+
+        asked = []
+
+        def getaddrinfo(host, port, *a, **kw):
+            asked.append(host)
+            raise socket.gaierror(socket.EAI_NONAME, "Name or service not known")
+
+        monkeypatch.setattr(socket, "getaddrinfo", getaddrinfo)
+        agg, store = _fanout_agg([target], "loop")
+        try:
+            agg.poll_once()
+        finally:
+            agg.close()
+        snap = store.current()
+        assert snap.value("tpu_aggregator_target_up", (target,)) == 0.0
+        assert snap.value("tpu_aggregator_scrape_errors_total", (target,)) == 1.0
+        assert asked == (["node-b.example"] if "example" in target else [])

@@ -49,6 +49,7 @@ PORT_INSTRUMENTATION_FAMILIES = (
     "tpu_exporter_last_device_read_timestamp_seconds",
     "tpu_aggregator_round_phase_seconds",
     "tpu_aggregator_fetch_stage_seconds",
+    "tpu_aggregator_fetch_rounds_total",
 )
 
 

@@ -100,11 +100,15 @@ EDITED = {
     "collector.py": (2, 20),
     # default_fetch's stages on a thread-local record; the round's phases
     # (fetch, parse, fold, publish), observed by _publish, and the fetch
-    # stages as histograms and as round-span attributes.
-    "aggregate.py": (4, 67),
+    # stages as histograms and as round-span attributes; a round on
+    # default_fetch over http targets fetched from loop_fetch's selectors
+    # loop in the round's thread, not the pool (names looked up on the
+    # pool, off the loop), counted by transport; a loop aggregator keeps a
+    # round's freed memory mapped (glibc's mallopt).
+    "aggregate.py": (15, 476),
     # The port's instrumentation families: loop lag, device-read instants,
-    # round phases, fetch stages.
-    "metrics/schema.py": (0, 40),
+    # round phases, fetch stages, rounds by fetch transport.
+    "metrics/schema.py": (0, 51),
     # --process-metrics scans /dev/nvidia<minor> for a GPU backend, as app.py
     # does (the reference walks /dev/accel and /dev/vfio whatever the backend);
     # the node's pods are joined under the GPU resource name for a GPU backend

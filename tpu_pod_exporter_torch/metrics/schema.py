@@ -1091,14 +1091,25 @@ TPU_AGG_ROUND_PHASE_HIST = HistogramSpec(
     label_names=("phase",),
 )
 
-# One successful default_fetch split into its stages: headers (connect,
-# send, the target's serve and the first byte), body (the read), gunzip
-# (0 for an identity-encoded body) and decode.
+# One successful fetch (default_fetch, or the round's selectors loop on
+# its behalf) split into its stages: headers (connect, send, the target's
+# serve and the first byte), body (the read), gunzip (0 for an
+# identity-encoded body) and decode.
 TPU_AGG_FETCH_STAGE_HIST = HistogramSpec(
     name="tpu_aggregator_fetch_stage_seconds",
     help="Distribution of SUCCESSFUL per-target fetch stage durations since start, pooled across targets, by stage: headers, body, gunzip and decode.",
     buckets=POLL_DURATION_BUCKETS,
     label_names=("stage",),
+)
+
+# Which way each round's fan-out went: "loop", one selectors loop in the
+# round's thread (the aggregator's own client over plain http targets), or
+# "pool", the scrape thread pool (an injected fetch, or an https target).
+TPU_AGG_FETCH_ROUNDS_TOTAL = MetricSpec(
+    name="tpu_aggregator_fetch_rounds_total",
+    help="Aggregation rounds since start, by the transport their target fetches took: loop (one non-blocking selectors loop in the round's thread) or pool (the scrape thread pool).",
+    type=COUNTER,
+    label_names=("transport",),
 )
 
 # --- Fleet query plane (tpu_pod_exporter_torch.fleet) -------------------------------
